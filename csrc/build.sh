@@ -3,5 +3,5 @@
 set -e
 cd "$(dirname "$0")"
 g++ -O3 -march=native -shared -fPIC -std=c++17 hostkernels.cpp \
-    -o ../cardiac_ablation_ecm2_tpu/_native.so
-echo "built cardiac_ablation_ecm2_tpu/_native.so"
+    -o ../cardiac_ablation_ecm2/_native.so
+echo "built cardiac_ablation_ecm2/_native.so"

@@ -1,13 +1,13 @@
 // Native host-side setup kernels.
 //
 // Reference analog: the C++ mesh/fespace setup machinery of the reference
-// library (dof enumeration in fem/fespace.cpp, entity tables in mesh/).  The
-// TPU build keeps device compute in XLA/Pallas, but the *runtime* setup path
+// library (dof enumeration in fem/fespace.cpp, entity tables in mesh/).  This
+// package keeps device compute in XLA, but the *runtime* setup path
 // (global dof numbering for million-element meshes, halo table construction)
 // is natively implemented here and exposed to Python via ctypes — the
 // numpy fallback in fem/fespace.py implements identical semantics.
 //
-// Build: csrc/build.sh  →  cardiac_ablation_ecm2_tpu/_native.so
+// Build: csrc/build.sh  →  cardiac_ablation_ecm2/_native.so
 //
 // encode_rows: hash-unique the rows of `main` (n_main × row_len int64),
 // assigning ids in first-occurrence order; then map each row of `query` to

@@ -28,8 +28,8 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.models import ablation
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.models import ablation
 
     L = args.size
     sigma0, k0 = 0.54, 0.54

@@ -24,17 +24,17 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.build import (basis_for,
+    from cardiac_ablation_ecm2.fem.build import (basis_for,
                                                      geom_factors_for,
                                                      restriction_for)
-    from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-    from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.mesh.ncmesh import (Z3, make_nc,
+    from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.mesh.ncmesh import (Z3, make_nc,
                                                        refine_hexes_aniso)
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     eps = args.eps
 

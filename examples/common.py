@@ -39,18 +39,16 @@ def setup_jax(args):
         jax.config.update("jax_platforms", "cpu")
     if args.x64:
         jax.config.update("jax_enable_x64", True)
-    # persistent XLA executable cache (CAX_COMPILE_CACHE=0 disables): repeat
-    # driver runs skip recompiles of unchanged steps
-    if os.environ.get("CAX_COMPILE_CACHE", "") != "0":
-        from cardiac_ablation_ecm2_tpu.utils.config import \
-            enable_compilation_cache
+    # persistent XLA executable cache: repeat example runs skip recompiles
+    # of unchanged steps
+    from cardiac_ablation_ecm2.utils.config import enable_compilation_cache
 
-        enable_compilation_cache()
+    enable_compilation_cache()
 
 
 def load_mesh(args, default="inline-quad-8"):
-    from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-    from cardiac_ablation_ecm2_tpu.mesh import (
+    from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+    from cardiac_ablation_ecm2.mesh import (
         make_cartesian_2d,
         make_cartesian_2d_tri,
         make_cartesian_3d,
@@ -83,7 +81,7 @@ def load_mesh(args, default="inline-quad-8"):
 
 def maybe_vtu(args, mesh, fes, u, name="u"):
     if args.vtu:
-        from cardiac_ablation_ecm2_tpu.io.vtu import vertex_values, write_vtu
+        from cardiac_ablation_ecm2.io.vtu import vertex_values, write_vtu
 
         write_vtu(mesh, args.vtu, point_data={name: vertex_values(fes, u)})
         print(f"wrote {args.vtu}")

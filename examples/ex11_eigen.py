@@ -13,9 +13,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg.lobpcg import lobpcg
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm, ConstrainedOperator
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg.lobpcg import lobpcg
+    from cardiac_ablation_ecm2.ops import BilinearForm, ConstrainedOperator
 
     mesh = load_mesh(args, "inline-quad-12")
     fes = FESpace(mesh, args.order)

@@ -17,10 +17,10 @@ def main():
     jax.config.update("jax_enable_x64", True)   # modal analysis: f64
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg.lobpcg import lobpcg
-    from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg.lobpcg import lobpcg
+    from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+    from cardiac_ablation_ecm2.ops import BilinearForm
 
     # beam 8×1 aspect, clamped on the left (attribute 4)
     n = args.ncell

@@ -19,12 +19,12 @@ def main():
 
     jax.config.update("jax_enable_x64", True)
 
-    from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-    from cardiac_ablation_ecm2_tpu.linalg.maxwell_eigen import (
+    from cardiac_ablation_ecm2.fem.fespace import FESpace
+    from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+    from cardiac_ablation_ecm2.linalg.maxwell_eigen import (
         maxwell_eigenvalues,
     )
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import (
+    from cardiac_ablation_ecm2.mesh.mesh import (
         make_cartesian_2d,
         make_cartesian_3d,
     )

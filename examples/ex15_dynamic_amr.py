@@ -15,9 +15,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-    from cardiac_ablation_ecm2_tpu.mesh.forest import AMRForest
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2.mesh.forest import AMRForest
+    from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_2d
 
     forest = AMRForest(make_cartesian_2d(args.ncell, args.ncell))
     for step in range(args.steps):

@@ -19,10 +19,10 @@ def main():
     args = ap.parse_args()
     setup_jax(args)
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_norm, project
-    from cardiac_ablation_ecm2_tpu.linalg import ode
-    from cardiac_ablation_ecm2_tpu.models import heat
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.gridfunction import l2_norm, project
+    from cardiac_ablation_ecm2.linalg import ode
+    from cardiac_ablation_ecm2.models import heat
 
     mesh = load_mesh(args, "inline-quad-16")
     fes = FESpace(mesh, args.order)

@@ -14,7 +14,7 @@ def main():
     args = ap.parse_args()
     setup_jax(args)
 
-    from cardiac_ablation_ecm2_tpu.models import poisson
+    from cardiac_ablation_ecm2.models import poisson
 
     mesh = load_mesh(args, "inline-quad-16")
     res = poisson.solve(

@@ -14,15 +14,15 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (
+    from cardiac_ablation_ecm2.fem.fespace import FESpace
+    from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+    from cardiac_ablation_ecm2.fem.gridfunction import project
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import (
         mixed_vector_gradient,
     )
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import build_nd_operator
+    from cardiac_ablation_ecm2.ops.vecfe import build_nd_operator
 
     n = args.ncell
     order = max(args.order, 1)

@@ -14,12 +14,12 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg.multigrid import make_p_multigrid
-    from cardiac_ablation_ecm2_tpu.linalg.smoothers import jacobi
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm, ConstrainedOperator
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg.multigrid import make_p_multigrid
+    from cardiac_ablation_ecm2.linalg.smoothers import jacobi
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.ops import BilinearForm, ConstrainedOperator
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     mesh = load_mesh(args, "inline-quad-16")
     orders = [1]

@@ -24,11 +24,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg import constrained
-    from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_lf_vector
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg import constrained
+    from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import boundary_lf_vector
 
     # ex28's build_trapezoid_mesh: unit square with the top-left corner
     # pulled right to (offset, 1)

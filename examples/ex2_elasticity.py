@@ -13,7 +13,7 @@ def main():
     args = ap.parse_args()
     setup_jax(args)
 
-    from cardiac_ablation_ecm2_tpu.models import elasticity
+    from cardiac_ablation_ecm2.models import elasticity
 
     mesh = load_mesh(args, "/root/reference/data/beam-quad.mesh")
     res = elasticity.solve(mesh, order=args.order, lam=args.lam, mu=args.mu)

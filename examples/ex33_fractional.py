@@ -18,12 +18,12 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
-    from cardiac_ablation_ecm2_tpu.linalg.fractional import fractional_solve
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.gridfunction import l2_error
+    from cardiac_ablation_ecm2.linalg.fractional import fractional_solve
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     s = args.power
     mesh = make_cartesian_2d(args.ncell, args.ncell)

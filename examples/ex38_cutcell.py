@@ -42,10 +42,10 @@ def main():
     args = ap.parse_args()
     setup_jax(args)
 
-    from cardiac_ablation_ecm2_tpu.fem.cutcells import (cut_surface_rule,
+    from cardiac_ablation_ecm2.fem.cutcells import (cut_surface_rule,
                                                         cut_volume_rule,
                                                         integrate)
-    from cardiac_ablation_ecm2_tpu.mesh import (Mesh, make_cartesian_2d,
+    from cardiac_ablation_ecm2.mesh import (Mesh, make_cartesian_2d,
                                                 make_cartesian_3d)
 
     case = CASES[args.inttype]

@@ -23,10 +23,10 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+    from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.ops.vecfe import (
         build_nd_operator,
         vecfe_linear_form,
     )
@@ -76,12 +76,12 @@ def run_ams(args):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace
-    from cardiac_ablation_ecm2_tpu.linalg.ams import make_ams
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2.linalg.ams import make_ams
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.ops.vecfe import (
         build_nd_operator,
         vecfe_linear_form,
     )

@@ -10,7 +10,7 @@ def main():
     args = ap.parse_args()
     setup_jax(args)
 
-    from cardiac_ablation_ecm2_tpu.models import darcy
+    from cardiac_ablation_ecm2.models import darcy
 
     mesh = load_mesh(args, "inline-quad-8")
 

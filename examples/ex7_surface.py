@@ -17,10 +17,10 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg.lobpcg import lobpcg
-    from cardiac_ablation_ecm2_tpu.mesh.surface import make_sphere_quad
-    from cardiac_ablation_ecm2_tpu.ops.surface import surface_operators
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg.lobpcg import lobpcg
+    from cardiac_ablation_ecm2.mesh.surface import make_sphere_quad
+    from cardiac_ablation_ecm2.ops.surface import surface_operators
 
     order = max(args.order, 1)
     mesh = make_sphere_quad(args.ncell, curved_order=max(order, 2))

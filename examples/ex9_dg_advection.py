@@ -18,9 +18,9 @@ def main():
 
     import jax
 
-    from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-    from cardiac_ablation_ecm2_tpu.linalg import ode
-    from cardiac_ablation_ecm2_tpu.ops.dg_advection import DGAdvection, project_l2
+    from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+    from cardiac_ablation_ecm2.linalg import ode
+    from cardiac_ablation_ecm2.ops.dg_advection import DGAdvection, project_l2
 
     mesh = load_mesh(args, "inline-quad-24")
     fes = L2FESpace(mesh, args.order)

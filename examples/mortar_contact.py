@@ -26,11 +26,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.mortar import (
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.mortar import (
         build_mortar_constraints, contact_solve)
-    from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+    from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+    from cardiac_ablation_ecm2.ops import BilinearForm
 
     n_lo, n_hi = args.n, (args.n + 2 if args.nonmatching else args.n)
     lo = make_cartesian_2d(n_lo, args.n)

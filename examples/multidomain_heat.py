@@ -17,16 +17,16 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.mesh.submesh import (
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.gridfunction import project
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_3d
+    from cardiac_ablation_ecm2.mesh.submesh import (
         create_from_domain,
         create_transfer_map,
     )
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     # parent: unit cube; catheter = inner column (attribute 2)
     n = args.ncell

@@ -25,9 +25,9 @@ def main():
 
     jax.config.update("jax_enable_x64", True)
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.models.spde import sample_matern_field
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.models.spde import sample_matern_field
 
     mesh = make_cartesian_2d(args.ncell, args.ncell)
     fes = FESpace(mesh, max(args.order, 1))
@@ -40,7 +40,7 @@ def main():
           f"{args.samples} samples: center mean={U[:, ctr].mean():+.3f} "
           f"std={std_c:.3f} (theory 1.0 ± MC/boundary effects)")
     if args.save:
-        from cardiac_ablation_ecm2_tpu.io import save_vtu
+        from cardiac_ablation_ecm2.io import save_vtu
 
         save_vtu(args.save, fes, {"u": U[0]})
         print(f"wrote {args.save}")

@@ -22,11 +22,11 @@ def main():
 
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg.krylov_extra import minres
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import vector_divergence
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg.krylov_extra import minres
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import vector_divergence
 
     mesh = make_cartesian_2d(args.n, args.n)
     V = FESpace(mesh, max(args.order, 2), vdim=2)

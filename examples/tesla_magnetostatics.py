@@ -16,10 +16,10 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace, RTSpace
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+    from cardiac_ablation_ecm2.fem.fe_vector import NDSpace, RTSpace
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.ops.vecfe import (
         build_nd_operator,
         discrete_curl,
         discrete_divergence,

@@ -1,50 +1,26 @@
-"""Compensated f32 reductions (linalg/accum.py): the TPU substitute for
-f64-accumulated inner products (IterativeSolver::Dot, linalg/solvers.cpp:58).
-Accuracy must be far below f32 tree-sum stagnation (~4e-7) so mixed-precision
-CG keeps its MFEM-parity stopping behavior."""
+"""f64-accumulated inner products of f32 vectors (IterativeSolver::Dot,
+linalg/solvers.cpp:58): the mixed-precision CG dots, serial
+(``linalg.solvers.default_dot``) and sharded (``parallel.ops.make_pdot``).
+Plain f32 tree sums stagnate at ~4e-7 relative error under cancellation,
+so both must accumulate far below that."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.linalg import accum
 
-
-def test_compensated_dot_accuracy_positive():
-    # CG's dots are (r,z), (d,Ad): positive products, no cancellation.
-    rng = np.random.default_rng(3)
-    n = 500_000
-    x = np.abs(rng.standard_normal(n)).astype(np.float32)
-    y = np.abs(rng.standard_normal(n)).astype(np.float32)
-    ref = np.dot(x.astype(np.float64), y.astype(np.float64))
-    got = float(jax.jit(accum.compensated_dot)(jnp.asarray(x), jnp.asarray(y)))
-    assert abs(got - ref) / abs(ref) < 1e-9
-    # plain f32 would typically be ~1e-7; the scheme must beat it soundly
-    plain = float(jnp.vdot(jnp.asarray(x), jnp.asarray(y)))
-    assert abs(got - ref) <= abs(plain - ref) + abs(ref) * 1e-12
-
-
-def test_compensated_dot_cancellation():
-    rng = np.random.default_rng(4)
-    n = 300_001  # non-multiple of LANES exercises padding
+def _cancelling_pair(n, seed):
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(n).astype(np.float32)
     ref = np.dot(x.astype(np.float64), y.astype(np.float64))
-    got = float(jax.jit(accum.compensated_dot)(jnp.asarray(x), jnp.asarray(y)))
-    # absolute error relative to the uncancelled magnitude
     scale = np.dot(np.abs(x).astype(np.float64), np.abs(y).astype(np.float64))
-    assert abs(got - ref) / scale < 1e-9
-
-
-def test_compensated_sum_small_path():
-    x = np.linspace(0.0, 1.0, 1000).astype(np.float32)
-    got = float(accum.compensated_sum(jnp.asarray(x)))
-    assert abs(got - np.sum(x.astype(np.float64))) < 1e-10
+    return x, y, ref, scale
 
 
 def test_default_dot_unchanged_on_cpu():
-    # on CPU the native-f64 path must still be taken (bitwise legacy behavior)
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import default_dot
+    # the native-f64 path: bitwise the f64 vdot rounded to the input dtype
+    from cardiac_ablation_ecm2.linalg.solvers import default_dot
 
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.standard_normal(1000).astype(np.float32))
@@ -53,3 +29,39 @@ def test_default_dot_unchanged_on_cpu():
         x.astype(jnp.float64), y.astype(jnp.float64)
     ).astype(x.dtype)
     assert float(default_dot(x, y)) == float(expect)
+
+
+def test_default_dot_accumulates_f32_in_f64():
+    from cardiac_ablation_ecm2.linalg.solvers import default_dot
+
+    x, y, ref, scale = _cancelling_pair(300_001, 4)
+    got = jax.jit(default_dot)(jnp.asarray(x), jnp.asarray(y))
+    assert got.dtype == jnp.float32
+    # only the final f32 rounding of the exact f64 sum remains
+    assert abs(float(got) - ref) <= abs(ref) * 2 ** -23 + scale * 1e-12
+
+
+def test_make_pdot_accumulates_f32_in_f64_on_4_devices():
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from cardiac_ablation_ecm2.parallel.ops import AXIS, make_pdot
+
+    devs = jax.devices()[:4]
+    assert len(devs) == 4
+    n = 4 * 75_000
+    x, y, ref, scale = _cancelling_pair(n, 6)
+    w = np.ones(n, np.float32)
+    w[::7] = 0.5                     # shared-dof multiplicity weights
+    # pdot forms the weighted products in f32; only the sum must be f64
+    ref = np.sum((x * w * y).astype(np.float64))
+
+    def local(a, b, wt):
+        return make_pdot(wt[0])(a[0], b[0])[None]
+
+    f = jax.jit(jax.shard_map(
+        local, mesh=Mesh(np.array(devs), (AXIS,)),
+        in_specs=(P(AXIS), P(AXIS), P(AXIS)), out_specs=P(AXIS)))
+    out = np.asarray(f(*(jnp.asarray(v.reshape(4, -1)) for v in (x, y, w))))
+    assert out.dtype == np.float32
+    assert np.all(out == out[0])     # psum: every device holds the total
+    assert abs(float(out[0]) - ref) <= abs(ref) * 2 ** -23 + scale * 1e-12

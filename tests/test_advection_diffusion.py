@@ -5,15 +5,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models.advection_diffusion import (
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models.advection_diffusion import (
     DGAdvectionDiffusion,
 )
-from cardiac_ablation_ecm2_tpu.ops.dg_advection import project_l2
+from cardiac_ablation_ecm2.ops.dg_advection import project_l2
 
 
 def vel(x):

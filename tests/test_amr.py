@@ -5,18 +5,18 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.estimators import zz_estimator
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error, project
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d_tri
-from cardiac_ablation_ecm2_tpu.mesh.amr import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.estimators import zz_estimator
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error, project
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d_tri
+from cardiac_ablation_ecm2.mesh.amr import (
     bisect_marked,
     interp_after_refine,
     threshold_refine,
 )
-from cardiac_ablation_ecm2_tpu.mesh.point_eval import evaluate_at_points
-from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.mesh.point_eval import evaluate_at_points
+from cardiac_ablation_ecm2.fem.geometry import Geometry
+from cardiac_ablation_ecm2.models import poisson
 
 
 def lshape_mesh():
@@ -158,7 +158,7 @@ def test_solution_transfer():
 
 
 def test_kelly_estimator_flags_singularity():
-    from cardiac_ablation_ecm2_tpu.fem.estimators import kelly_estimator
+    from cardiac_ablation_ecm2.fem.estimators import kelly_estimator
 
     mesh = lshape_mesh()
     res = poisson.solve(mesh, order=2, rhs=lambda x: 0 * np.asarray(x)[..., 0],
@@ -170,12 +170,12 @@ def test_kelly_estimator_flags_singularity():
 
 
 def test_attribute_sets():
-    from cardiac_ablation_ecm2_tpu.mesh.attribute_sets import (
+    from cardiac_ablation_ecm2.mesh.attribute_sets import (
         AttributeSets,
         resolve_marker,
     )
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
 
     s = AttributeSets()
     s.set("walls", [1, 3])

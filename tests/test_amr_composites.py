@@ -4,13 +4,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.estimators import zz_estimator
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.amr import threshold_refine
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_2d_tri
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_lf_vector
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.estimators import zz_estimator
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.amr import threshold_refine
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_2d_tri
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import boundary_lf_vector
 
 
 def test_ex21_amr_elasticity():
@@ -56,20 +56,20 @@ def test_ex30_unresolved_data_refinement():
     """A sharp coefficient bump unresolved on the coarse mesh: project,
     estimate the projection error elementwise, refine until the data is
     resolved — element count grows only near the bump."""
-    from cardiac_ablation_ecm2_tpu.fem.build import (
+    from cardiac_ablation_ecm2.fem.build import (
         basis_for,
         geom_factors_for,
     )
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-    from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-    from cardiac_ablation_ecm2_tpu.fem.restriction import ElementRestriction
+    from cardiac_ablation_ecm2.fem.gridfunction import project
+    from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+    from cardiac_ablation_ecm2.fem.restriction import ElementRestriction
 
     def f(x):
         x = np.asarray(x)
         return np.exp(-300 * ((x[..., 0] - 0.3) ** 2
                               + (x[..., 1] - 0.6) ** 2))
 
-    from cardiac_ablation_ecm2_tpu.fem.build import restriction_for
+    from cardiac_ablation_ecm2.fem.build import restriction_for
 
     mesh = make_cartesian_2d_tri(4, 4)
     errs = []

@@ -10,22 +10,22 @@ import pytest
 
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace, RTSpace
-from cardiac_ablation_ecm2_tpu.linalg.ams import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector import NDSpace, RTSpace
+from cardiac_ablation_ecm2.linalg.ams import (
     _nd_pi,
     _rt_pi,
     _transpose_of,
     make_ads,
     make_ams,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_3d,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     discrete_gradient,
@@ -71,7 +71,7 @@ def test_nd_pi_reproduces_constants(maker):
     mesh = maker(3, 3, 3)
     h1 = FESpace(mesh, 1)
     nd = NDSpace(mesh)
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
+    from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
 
     c = np.array([0.3, -0.7, 1.1])
     M = build_nd_operator(nd, mass_coeff=1.0, curlcurl_coeff=None)
@@ -89,7 +89,7 @@ def test_rt_pi_reproduces_constants(maker):
     mesh = maker(3, 3, 3)
     h1 = FESpace(mesh, 1)
     rt = RTSpace(mesh)
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
+    from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
 
     c = np.array([0.3, -0.7, 1.1])
     M = build_rt_operator(rt, mass_coeff=1.0, divdiv_coeff=None)

@@ -5,8 +5,8 @@ of polynomials up to order p, and tensor/dense cross-checks."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import basis
-from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry, DIMENSION
+from cardiac_ablation_ecm2.fem import basis
+from cardiac_ablation_ecm2.fem.geometry import Geometry, DIMENSION
 
 
 GEOMS = [Geometry.SEGMENT, Geometry.SQUARE, Geometry.CUBE, Geometry.TRIANGLE,
@@ -75,7 +75,7 @@ def test_lex_kron_matches_pointwise(p):
 def test_bernstein_positive_basis():
     """Bernstein basis: positivity, partition of unity, exact P_p
     representation via the nodal→Bernstein conversion."""
-    from cardiac_ablation_ecm2_tpu.fem.basis import (
+    from cardiac_ablation_ecm2.fem.basis import (
         bernstein_matrices,
         h1_nodes_1d,
         nodal_to_bernstein,

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.linalg.blockilu import block_ilu0
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+from cardiac_ablation_ecm2.linalg.blockilu import block_ilu0
+from cardiac_ablation_ecm2.linalg.solvers import cg
 
 
 def _block_coo(dense, nblk, b):

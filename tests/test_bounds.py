@@ -4,12 +4,12 @@ analog)."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.bounds import element_bounds
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, restriction_for
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.bounds import element_bounds
+from cardiac_ablation_ecm2.fem.build import basis_for, restriction_for
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
 
 import jax.numpy as jnp
 

@@ -6,7 +6,7 @@ solves on them (the BASELINE config-5 workload path)."""
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.mesh.cardiac import (
+from cardiac_ablation_ecm2.mesh.cardiac import (
     make_cardiac_hex_mesh,
     make_cardiac_tet_mesh,
 )
@@ -41,8 +41,8 @@ def test_tet_mesh_invariants():
 
 def test_hex_mesh_invariants():
     m = make_cardiac_hex_mesh(10)
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.build import geom_factors_for
 
     fes = FESpace(m, 1)
     gf = geom_factors_for(fes)
@@ -54,7 +54,7 @@ def test_hex_mesh_invariants():
 
 
 def test_mfem_roundtrip():
-    from cardiac_ablation_ecm2_tpu.io.mesh_io import (
+    from cardiac_ablation_ecm2.io.mesh_io import (
         read_mfem_mesh,
         write_mfem_mesh,
     )
@@ -70,10 +70,10 @@ def test_mfem_roundtrip():
 def test_bioheat_solves_on_cardiac_tet():
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg import ode
-    from cardiac_ablation_ecm2_tpu.mesh.cardiac import rf_source_q
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg import ode
+    from cardiac_ablation_ecm2.mesh.cardiac import rf_source_q
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     m = make_cardiac_tet_mesh(8, lengths=(0.04, 0.04, 0.02),
                               electrode_radius=0.004)

@@ -4,14 +4,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.cartesian import CartesianFESpace, StructuredRestriction
-from cardiac_ablation_ecm2_tpu.fem.build import restriction_for
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm, ConstrainedOperator
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.linalg.smoothers import jacobi
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.cartesian import CartesianFESpace, StructuredRestriction
+from cardiac_ablation_ecm2.fem.build import restriction_for
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops import BilinearForm, ConstrainedOperator
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.linalg.smoothers import jacobi
 
 
 @pytest.mark.parametrize("dim,p", [(2, 1), (2, 3), (3, 2)])

@@ -13,8 +13,8 @@ preconditioner, same criterion, f64 arithmetic.
 
 import pytest
 
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.models import poisson
 
 DATA = "/root/reference/data"
 
@@ -41,7 +41,7 @@ def _mfem_analog_path():
     reference matrices — algebraically identical, but the different
     association can legitimately shift a count by ±1 at the last bit
     (observed: star.mesh p2 converges in 20 instead of 21)."""
-    from cardiac_ablation_ecm2_tpu.utils.config import config, configure
+    from cardiac_ablation_ecm2.utils.config import config, configure
 
     old = config.affine_collapse
     configure(affine_collapse="off")

@@ -4,15 +4,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.io.checkpoint import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.io.checkpoint import (
     DataCollection,
     load_gridfunction,
     save_gridfunction,
 )
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models import heat
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models import heat
 
 
 def test_restart_bit_exact(tmp_path):
@@ -64,7 +64,7 @@ def test_gridfunction_roundtrip(tmp_path):
 
 
 def test_pvd_series(tmp_path):
-    from cardiac_ablation_ecm2_tpu.io.vtu import write_pvd, write_vtu
+    from cardiac_ablation_ecm2.io.vtu import write_pvd, write_vtu
 
     mesh = make_cartesian_2d(2, 2)
     entries = []
@@ -80,7 +80,7 @@ def test_pvd_series(tmp_path):
 
 def test_domain_lf_vector():
     """(f, v) with constant f: sums to f·|Ω| per component."""
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf_vector
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf_vector
 
     mesh = make_cartesian_2d(3, 3)
     fes = FESpace(mesh, 2, vdim=2)
@@ -96,13 +96,13 @@ def test_visit_datacollection_roundtrip(tmp_path):
     GridFunction body is plain MFEM H1 P1 (reference-readable)."""
     import numpy as np
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.io.checkpoint import load_visit, save_visit
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.io.checkpoint import load_visit, save_visit
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
 
     mesh = make_cartesian_3d(3, 3, 3)
     fes = FESpace(mesh, 1)
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
+    from cardiac_ablation_ecm2.fem.gridfunction import project
 
     f = lambda x: 1.0 + 2 * np.asarray(x)[..., 0] - np.asarray(x)[..., 2]
     u = project(fes, f)

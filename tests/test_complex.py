@@ -10,16 +10,16 @@ E = (0, e^{ikx}) in the physical region)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-from cardiac_ablation_ecm2_tpu.linalg.solvers import gmres
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.complex_fem import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+from cardiac_ablation_ecm2.linalg.solvers import gmres
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops.complex_fem import (
     BLOCK_SYMMETRIC, ComplexGridFunction, ComplexOperator, SesquilinearForm,
     complex_jacobi, cstack, form_complex_linear_system)
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
-from cardiac_ablation_ecm2_tpu.ops.operators import LinearOperator
-from cardiac_ablation_ecm2_tpu.ops.vecfe import build_nd_operator
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.ops.operators import LinearOperator
+from cardiac_ablation_ecm2.ops.vecfe import build_nd_operator
 
 
 def test_conventions_match_dense_complex():
@@ -101,7 +101,7 @@ def test_block_symmetric_same_solution():
 def test_ex22_nd_damped():
     """ex22 prob-1 analog on ND₂: curl curl E − ω²E + iωσE = F with the
     div-free zero-trace manufactured E (curl curl E = 2π²E)."""
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
+    from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
 
     omega, sigma = 1.5, 0.8
     mesh = make_cartesian_3d(3, 3, 3)
@@ -192,8 +192,8 @@ def _beam_pml_error(nx, ny, order=2, k=np.pi, Lx=4.0, pml_x=3.0):
     # interpolant of the constant field (0, 1) (exactly representable →
     # its L2 projection IS the interpolant), scaled by e^{ik·0}=1 on the
     # left edge, 0 elsewhere
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
 
     mass1 = build_nd_operator(space, mass_coeff=1.0, curlcurl_coeff=None,
                               nq1d=order + 2)

@@ -8,13 +8,13 @@ displacement constrained but tangential sliding allowed."""
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg.constrained import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg.constrained import (
     build_normal_constraints, eliminate_constrained_solve, from_rows,
     penalty_constrained_solve, schur_constrained_solve)
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_lf_vector
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import boundary_lf_vector
 
 
 def test_against_dense_kkt():

@@ -4,11 +4,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg.obstacle import obstacle_solve
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_lf_vector
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg.obstacle import obstacle_solve
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import boundary_lf_vector
 
 
 def test_beam_on_rigid_floor():
@@ -53,7 +53,7 @@ def test_beam_on_rigid_floor():
     cdofs = np.nonzero(contact)[0]
     assert np.allclose(np.asarray(u)[cdofs], -gap, atol=1e-10)
     # without the floor the tip would dip below the gap
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     m = 1 - fm
     Ac = lambda v: A.mult(v * m) * m + v * (1 - m)

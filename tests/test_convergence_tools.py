@@ -5,9 +5,9 @@ import io
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem.convergence import ConvergenceStudy, study
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.fem.convergence import ConvergenceStudy, study
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models import poisson
 
 
 def test_rates_synthetic():
@@ -33,7 +33,7 @@ def test_poisson_ladder_rate():
             mesh, order=2, rhs=lambda x: 2 * np.pi ** 2 *
             np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]),
             rel_tol=1e-12)
-        from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
+        from cardiac_ablation_ecm2.fem.gridfunction import l2_error
 
         err = l2_error(
             res.fes, res.u, lambda x: np.sin(np.pi * x[..., 0]) *

@@ -5,10 +5,10 @@ sets, surface and volume integrals against closed forms."""
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem.cutcells import (cut_surface_rule,
+from cardiac_ablation_ecm2.fem.cutcells import (cut_surface_rule,
                                                     cut_volume_rule,
                                                     integrate)
-from cardiac_ablation_ecm2_tpu.mesh import (Mesh, make_cartesian_2d,
+from cardiac_ablation_ecm2.mesh import (Mesh, make_cartesian_2d,
                                             make_cartesian_3d)
 
 
@@ -103,8 +103,8 @@ def test_cut_linear_form_exact_moments():
     of ex38)."""
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.cutcells import cut_linear_form
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.cutcells import cut_linear_form
 
     phi = lambda x: 1.0 - (x[..., 0] ** 2 + x[..., 1] ** 2)
     mesh = _centered(make_cartesian_2d(8, 8, 4.0, 4.0), 4.0)
@@ -125,8 +125,8 @@ def test_cut_surface_linear_form():
     """Surface version: Σ_j b_j = perimeter; linear moments vanish."""
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.fem.cutcells import cut_linear_form
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.fem.cutcells import cut_linear_form
 
     phi = lambda x: 1.0 - (x[..., 0] ** 2 + x[..., 1] ** 2)
     mesh = _centered(make_cartesian_2d(8, 8, 4.0, 4.0), 4.0)

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models import darcy
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models import darcy
 
 
 def p_exact(x):
@@ -38,7 +38,7 @@ def solve_on(n):
                       max_iter=8000)
     assert res.converged, res.iterations
     # errors via element quadrature
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import build_rt_operator
+    from cardiac_ablation_ecm2.ops.vecfe import build_rt_operator
 
     M = res.rt and None
     op = build_rt_operator(res.rt, mass_coeff=1.0)

@@ -5,19 +5,19 @@ ThresholdDerefiner mesh/mesh_operators.hpp:274)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.estimators import zz_estimator
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error, project
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.amr import interp_after_refine
-from cardiac_ablation_ecm2_tpu.mesh.forest import (
+from cardiac_ablation_ecm2.fem.estimators import zz_estimator
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error, project
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.amr import interp_after_refine
+from cardiac_ablation_ecm2.mesh.forest import (
     AMRForest,
     threshold_derefine_nc,
     threshold_refine_nc,
 )
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def test_refine_then_derefine_roundtrip_quads():
@@ -61,8 +61,8 @@ def test_derefine_respects_balance_quads():
     # elements around the depth-2 cluster to preserve 2:1
     changed = forest.derefine(np.ones(len(forest.active), bool))
     m = forest.mesh()
-    from cardiac_ablation_ecm2_tpu.mesh.ncmesh import make_nc
-    from cardiac_ablation_ecm2_tpu.mesh.forest import _bad_master_edges
+    from cardiac_ablation_ecm2.mesh.ncmesh import make_nc
+    from cardiac_ablation_ecm2.mesh.forest import _bad_master_edges
 
     nc = make_nc(m)
     assert not _bad_master_edges(nc.constraints)

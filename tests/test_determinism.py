@@ -6,10 +6,10 @@ against regressions to nondeterministic accumulation)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for, restriction_for
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for, restriction_for
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.ops import BilinearForm
 from test_fespace import permute_vertices, perturb
 
 

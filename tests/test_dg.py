@@ -5,12 +5,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops.dg_advection import DGAdvection, project_l2
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for, basis_for
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops.dg_advection import DGAdvection, project_l2
+from cardiac_ablation_ecm2.fem.build import geom_factors_for, basis_for
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
 
 
 def vel_const(x):
@@ -108,7 +108,7 @@ def test_periodic_advection_wraps():
     """Periodic mesh: DG advection wraps around and returns after one period
     (the ex9 periodic-square configuration)."""
     import jax
-    from cardiac_ablation_ecm2_tpu.mesh import make_periodic_cartesian_2d
+    from cardiac_ablation_ecm2.mesh import make_periodic_cartesian_2d
 
     mesh = make_periodic_cartesian_2d(16, 3, 1.0, 0.25, periodic=(True, False))
     assert mesh.nbe > 0              # y-walls remain, x is periodic
@@ -157,7 +157,7 @@ def test_periodic_advection_wraps():
 
 def test_free_stream_tet_mesh():
     """DG face machinery on tetrahedra (triangle faces, all orientations)."""
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d_tet
 
     mesh = make_cartesian_3d_tet(2, 2, 2)
     fes = L2FESpace(mesh, 1)

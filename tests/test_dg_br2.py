@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops.dg_diffusion import DGDiffusionBR2
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops.dg_diffusion import DGDiffusionBR2
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def _solve(n, p):
@@ -60,7 +60,7 @@ def test_br2_converges_order_p1():
 def test_br2_matches_sipg():
     """BR2 and SIPG solve the same problem: solutions agree to discretization
     accuracy (both converge to the same u)."""
-    from cardiac_ablation_ecm2_tpu.ops.dg_diffusion import DGDiffusion
+    from cardiac_ablation_ecm2.ops.dg_diffusion import DGDiffusion
 
     mesh = make_cartesian_2d(8, 8)
     fes = L2FESpace(mesh, 2)

@@ -5,12 +5,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values, eval_values_t
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops.dg_diffusion import DGDiffusion
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values, eval_values_t
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops.dg_diffusion import DGDiffusion
 
 
 def test_sipg_symmetry_and_coercivity():

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops.dg_elasticity import DGElasticity
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops.dg_elasticity import DGElasticity
 
 
 def test_symmetry():
@@ -80,7 +80,7 @@ def test_h_convergence_vs_smooth_solution():
         db, gf = basis_for(fes), geom_factors_for(fes)
         # body-force RHS per component
         fq = body(np.asarray(gf.x))
-        from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values_t
+        from cardiac_ablation_ecm2.fem.quadinterp import eval_values_t
 
         b = jnp.stack(
             [eval_values_t(db, gf.wdet * jnp.asarray(fq[..., c]))

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models.eikonal import EikonalSolver
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models.eikonal import EikonalSolver
 
 
 def test_unit_square_distance_function():

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import elasticity as ela
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.models import elasticity as ela
+from cardiac_ablation_ecm2.ops import BilinearForm
 from test_fespace import permute_vertices, perturb
 
 
@@ -96,9 +96,9 @@ def test_robin_poisson_solution():
         .add_domain_integrator("diffusion")
         .add_boundary_integrator("mass", coeff=1.0)
     )
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.linalg.smoothers import jacobi
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.smoothers import jacobi
 
     A_pa = a.assemble()
     b = domain_lf(fes, None)

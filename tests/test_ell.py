@@ -5,13 +5,13 @@ exists for; reference SparseMatrix::Mult, linalg/sparsemat.cpp)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg.smoothers import jacobi
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import (make_cartesian_2d_tri,
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg.smoothers import jacobi
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import (make_cartesian_2d_tri,
                                             make_cartesian_3d_tet)
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm, ConstrainedOperator
-from cardiac_ablation_ecm2_tpu.ops.ell import ELLOperator
+from cardiac_ablation_ecm2.ops import BilinearForm, ConstrainedOperator
+from cardiac_ablation_ecm2.ops.ell import ELLOperator
 
 
 def _check_mult(fes, kind, rtol=1e-6):

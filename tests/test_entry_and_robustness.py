@@ -33,8 +33,8 @@ def test_graft_entry_compiles_and_runs():
     "# vtk DataFile Version 3.0\nx\nASCII\nDATASET POLYDATA\n",   # wrong ds
 ])
 def test_mesh_readers_reject_malformed(payload):
-    from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-    from cardiac_ablation_ecm2_tpu.io.vtk_reader import read_vtk_mesh
+    from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+    from cardiac_ablation_ecm2.io.vtk_reader import read_vtk_mesh
 
     with pytest.raises(Exception):
         if payload.startswith("# vtk"):
@@ -42,7 +42,7 @@ def test_mesh_readers_reject_malformed(payload):
         else:
             m = read_mfem_mesh(payload)
             # a "successful" parse of garbage must still fail validation
-            from cardiac_ablation_ecm2_tpu.fem import FESpace
+            from cardiac_ablation_ecm2.fem import FESpace
 
             FESpace(m, 1)
 
@@ -50,9 +50,9 @@ def test_mesh_readers_reject_malformed(payload):
 def test_h1_order5_convergence():
     """Order-5 Poisson reproduces a degree-5 polynomial exactly (to solver
     tolerance) — exercises the p≥5 basis/dof paths end to end."""
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-    from cardiac_ablation_ecm2_tpu.models import poisson
+    from cardiac_ablation_ecm2.fem.gridfunction import l2_error
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.models import poisson
 
     def u_ex(x):
         x = np.asarray(x)

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
-from cardiac_ablation_ecm2_tpu.io.exodus import read_exodus, write_exodus
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import geom_factors_for
+from cardiac_ablation_ecm2.io.exodus import read_exodus, write_exodus
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d,
@@ -40,7 +40,7 @@ def test_exodus_roundtrip(tmp_path, maker):
 
 
 def test_exodus_solve(tmp_path):
-    from cardiac_ablation_ecm2_tpu.models import poisson
+    from cardiac_ablation_ecm2.models import poisson
 
     m = make_cartesian_3d(3, 3, 3)
     path = str(tmp_path / "m.e")

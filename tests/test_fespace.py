@@ -12,10 +12,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project, values_at_quad, l2_error
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for, restriction_for
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project, values_at_quad, l2_error
+from cardiac_ablation_ecm2.fem.build import geom_factors_for, restriction_for
+from cardiac_ablation_ecm2.mesh import (
     Mesh,
     make_cartesian_2d,
     make_cartesian_2d_tri,

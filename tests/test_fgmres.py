@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.linalg.krylov_extra import fgmres, ortho_wrap
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+from cardiac_ablation_ecm2.linalg.krylov_extra import fgmres, ortho_wrap
+from cardiac_ablation_ecm2.linalg.solvers import cg
 
 
 def _system(n=40, seed=0):

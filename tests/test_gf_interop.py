@@ -26,10 +26,10 @@ import tempfile
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.io import gf_io
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.fem.fespace import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.io import gf_io
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
 
 DATA = "/root/reference/data"
 GOLD = os.path.join(os.path.dirname(__file__), "goldens", "gf")
@@ -147,7 +147,7 @@ def test_save_visit_high_order_exact(tmp_path):
     """save_visit now stores high-order fields EXACTLY (the lossy
     vertex-restriction path is gone): p=3 field survives a VisIt-format
     roundtrip bit-tight through spaces= decoding."""
-    from cardiac_ablation_ecm2_tpu.io.checkpoint import load_visit, save_visit
+    from cardiac_ablation_ecm2.io.checkpoint import load_visit, save_visit
 
     mesh = read_mfem_mesh(f"{DATA}/fichera.mesh")
     fes = FESpace(mesh, 3)

@@ -6,7 +6,7 @@ import struct
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.io.gmsh import read_gmsh
+from cardiac_ablation_ecm2.io.gmsh import read_gmsh
 
 V22_ASCII = """$MeshFormat
 2.2 0 8

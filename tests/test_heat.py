@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error, l2_norm, project
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import bioheat, heat
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error, l2_norm, project
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.models import bioheat, heat
 
 
 def test_linear_heat_manufactured():
@@ -128,10 +128,10 @@ def test_bioheat_bf16_qdata_accuracy():
     the mass qdata too was 10x worse and is deliberately NOT done)."""
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.linalg import ode
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.linalg import ode
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     L = 0.04
     mesh = make_cartesian_3d(8, 8, 8, L, L, L)
@@ -162,12 +162,12 @@ def test_bioheat_merged_cg_matches_classic():
     the same trajectory as the classic CG loop."""
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.linalg import ode
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.models import bioheat
+    from cardiac_ablation_ecm2.linalg import ode
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.models import bioheat
 
     mesh = make_cartesian_3d(6, 6, 6, 0.04, 0.04, 0.04)
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
+    from cardiac_ablation_ecm2.fem import FESpace
 
     fes = FESpace(mesh, 2)
 

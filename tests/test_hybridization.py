@@ -9,17 +9,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_simplex import RTSimplexSpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import RTSpaceHO
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.mesh import (
+from cardiac_ablation_ecm2.fem.fe_vector_simplex import RTSimplexSpace
+from cardiac_ablation_ecm2.fem.fe_vector_ho import RTSpaceHO
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d_tet,
 )
 from tests.test_fespace import permute_vertices
-from cardiac_ablation_ecm2_tpu.ops.hybridization import hybridize_hdiv
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops.hybridization import hybridize_hdiv
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_rt_operator,
     vecfe_linear_form,
 )

@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops.hyperbolic import HyperbolicDG
-from cardiac_ablation_ecm2_tpu.fem.fespace import element_node_coords
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops.hyperbolic import HyperbolicDG
+from cardiac_ablation_ecm2.fem.fespace import element_node_coords
 
 
 def project_state(fes, f):

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, Mesh
-from cardiac_ablation_ecm2_tpu.models import elasticity as lin_ela
-from cardiac_ablation_ecm2_tpu.models.hyperelastic import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, Mesh
+from cardiac_ablation_ecm2.models import elasticity as lin_ela
+from cardiac_ablation_ecm2.models.hyperelastic import (
     HyperelasticProblem,
     neo_hookean_W,
 )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import intrules
+from cardiac_ablation_ecm2.fem import intrules
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8])

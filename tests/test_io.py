@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace, geom_factors_for
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh, write_mfem_mesh
-from cardiac_ablation_ecm2_tpu.io.vtu import vertex_values, write_vtu
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.fem import FESpace, geom_factors_for
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh, write_mfem_mesh
+from cardiac_ablation_ecm2.io.vtu import vertex_values, write_vtu
+from cardiac_ablation_ecm2.models import poisson
 
 DATA = "/root/reference/data"
 
@@ -126,7 +126,7 @@ $EndElements
 
 def test_read_gmsh():
     """Gmsh 2.2 reader: quads + physical names + boundary selection."""
-    from cardiac_ablation_ecm2_tpu.io.gmsh import read_gmsh
+    from cardiac_ablation_ecm2.io.gmsh import read_gmsh
 
     m, names = read_gmsh(GMSH_QUAD)
     assert m.geom.name == "SQUARE" and m.ne == 4 and m.nbe == 8
@@ -140,8 +140,8 @@ def test_read_gmsh():
 def test_gmsh_mixed_mesh_loads():
     """compass.msh is a mixed tri+quad mesh — loads as MixedMesh with one
     block per geometry (SURVEY §7 hard part 5, resolved)."""
-    from cardiac_ablation_ecm2_tpu.fem.mixed import MixedMesh
-    from cardiac_ablation_ecm2_tpu.io.gmsh import read_gmsh
+    from cardiac_ablation_ecm2.fem.mixed import MixedMesh
+    from cardiac_ablation_ecm2.io.gmsh import read_gmsh
 
     mesh, _names = read_gmsh(f"{DATA}/compass.msh")
     assert isinstance(mesh, MixedMesh)
@@ -155,9 +155,9 @@ def test_vtkhdf_roundtrip(tmp_path):
     Version/Type attrs ParaView's reader checks."""
     import h5py
 
-    from cardiac_ablation_ecm2_tpu.io.vtkhdf import (VTKHDFDataCollection,
+    from cardiac_ablation_ecm2.io.vtkhdf import (VTKHDFDataCollection,
                                                      read_vtkhdf)
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
+    from cardiac_ablation_ecm2.mesh import make_cartesian_2d
 
     mesh = make_cartesian_2d(3, 2)
     path = str(tmp_path / "col.vtkhdf")
@@ -187,8 +187,8 @@ def test_vtkhdf_roundtrip(tmp_path):
 
 def test_vtkhdf_mixed_mesh(tmp_path):
     """Mixed tri+quad meshes write per-cell offsets/types."""
-    from cardiac_ablation_ecm2_tpu.io.gmsh import read_gmsh
-    from cardiac_ablation_ecm2_tpu.io.vtkhdf import (VTKHDFDataCollection,
+    from cardiac_ablation_ecm2.io.gmsh import read_gmsh
+    from cardiac_ablation_ecm2.io.vtkhdf import (VTKHDFDataCollection,
                                                      read_vtkhdf)
 
     mesh, _ = read_gmsh(f"{DATA}/compass.msh")

@@ -6,7 +6,7 @@ import io
 import jax
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.utils.profiling import KernelReporter
+from cardiac_ablation_ecm2.utils.profiling import KernelReporter
 
 
 def test_kernel_reporter_flags_retraces():

@@ -10,15 +10,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.utils.config import config, configure
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.utils.config import config, configure
 
 
 def _mesh(dim, simplex=False):
@@ -91,7 +91,7 @@ def test_boundary_term_falls_back():
 
 def test_bioheat_lane_on_tets():
     """BioheatOperator's transposed apply now engages on simplex meshes."""
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     fes = FESpace(_mesh(3, simplex=True), 2)
     op = BioheatOperator(fes, rho_c=1.0, k=1.0, ess_bdr=[1, 2, 3, 4, 5, 6])
@@ -180,7 +180,7 @@ def test_affine_rejects_varying_coefficient():
 def test_bioheat_affine_on_tets():
     """Bioheat engages the affine path on tets; applies match the staged
     path; perfusion + gamma folding included."""
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     fes = FESpace(_jitter_mesh(_mesh(3, simplex=True)), 2)
     kw = dict(rho_c=2.0, k=0.7, w_cb=3.0, T_a=37.0,
@@ -207,8 +207,8 @@ def test_geometric_affine_on_f32_sliver_tets():
     NUMERICAL separability detection fails — but straight tets are affine
     by construction and the host-f64 geometric detector must engage (this
     is exactly the cardiac Delaunay production case)."""
-    from cardiac_ablation_ecm2_tpu.mesh.cardiac import make_cardiac_tet_mesh
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.mesh.cardiac import make_cardiac_tet_mesh
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     old = config.dtype
     try:
@@ -262,7 +262,7 @@ def test_affine_convection_constant_vector():
 def test_override_qdata_refreshes_lane_caches():
     """override(K_qd=...) must take effect under the lane/affine paths (the
     k(T)-coupled ablation step depends on this)."""
-    from cardiac_ablation_ecm2_tpu.models.bioheat import BioheatOperator
+    from cardiac_ablation_ecm2.models.bioheat import BioheatOperator
 
     fes = FESpace(_mesh(3, simplex=True), 2)
     op = BioheatOperator(fes, rho_c=1.0, k=1.0, ess_bdr=[1, 2, 3, 4, 5, 6])

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import (
     boundary_normal_lf,
     domain_lf_grad,
 )
@@ -69,8 +69,8 @@ def test_boundary_normal_lf_marker_2d():
 
 def test_delta_lf_pairing():
     """b·u = Σ s_k u(x_k) exactly for in-space u (ex34 delta loads)."""
-    from cardiac_ablation_ecm2_tpu.mesh.point_eval import evaluate_at_points
-    from cardiac_ablation_ecm2_tpu.ops.linearform import delta_lf
+    from cardiac_ablation_ecm2.mesh.point_eval import evaluate_at_points
+    from cardiac_ablation_ecm2.ops.linearform import delta_lf
 
     fes = FESpace(make_cartesian_2d(4, 4), 3)
     pts = [[0.33, 0.61], [0.9, 0.1], [5.0, 5.0]]   # last one outside
@@ -86,7 +86,7 @@ def test_boundary_tangential_circulation_2d():
     """∮ (g·τ) v ds with v ≡ 1 (H1 PoU) = circulation of g = ∫∫ curl g dA
     by Green's theorem — checks orientation (CCW boundary storage) AND
     magnitude.  g = (−y, x): curl g = 2 ⇒ b·1 = 2·Area."""
-    from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_tangential_lf
+    from cardiac_ablation_ecm2.ops.linearform import boundary_tangential_lf
 
     mesh = make_cartesian_2d(4, 4, 2.0, 1.5)
     fes = FESpace(mesh, 2)
@@ -103,7 +103,7 @@ def test_boundary_tangential_exact_line_integral():
     ∮ (g·τ) v ds along the four sides of [0,1]² (CCW)."""
     from numpy.polynomial.legendre import leggauss
 
-    from cardiac_ablation_ecm2_tpu.ops.linearform import boundary_tangential_lf
+    from cardiac_ablation_ecm2.ops.linearform import boundary_tangential_lf
 
     mesh = make_cartesian_2d(6, 6)
     fes = FESpace(mesh, 3)
@@ -133,8 +133,8 @@ def test_boundary_tangential_exact_line_integral():
 
 
 def test_vector_quadrature_lf_matches_per_component():
-    from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
-    from cardiac_ablation_ecm2_tpu.ops.linearform import (
+    from cardiac_ablation_ecm2.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2.ops.linearform import (
         domain_lf_from_qvec,
         vector_quadrature_lf,
     )
@@ -156,7 +156,7 @@ def test_white_noise_covariance_is_mass_matrix():
     """E[b bᵀ] = M exactly (lininteg.hpp:664 docblock: H Hᵀ = Pᵀ diag(M_e) P
     = M); checked by Monte-Carlo sample covariance against the assembled
     mass matrix, plus determinism in the key."""
-    from cardiac_ablation_ecm2_tpu.ops.linearform import white_noise_lf
+    from cardiac_ablation_ecm2.ops.linearform import white_noise_lf
 
     mesh = make_cartesian_2d(2, 2)
     fes = FESpace(mesh, 1)

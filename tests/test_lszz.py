@@ -3,13 +3,13 @@ fem/estimators.hpp:241)."""
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.estimators import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.estimators import (
     lszz_estimator,
     zz_estimator,
 )
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
 
 
 def test_affine_exact():

@@ -3,12 +3,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.linalg.maxwell_eigen import maxwell_eigenvalues
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models.magnetic_diffusion import (
+from cardiac_ablation_ecm2.fem.fespace import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.linalg.maxwell_eigen import maxwell_eigenvalues
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models.magnetic_diffusion import (
     MagneticDiffusionOperator,
 )
 
@@ -41,7 +41,7 @@ def test_cavity_mode_decay_rate():
 def test_source_driven_steady_state():
     """With a steady source the field relaxes to the static solve
     CC A = J_s (on the PEC-constrained subspace)."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     mesh = make_cartesian_2d(4, 4)
     nd = NDSpaceHO(mesh, 1)

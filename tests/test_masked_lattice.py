@@ -13,18 +13,18 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial import cKDTree
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.cartesian import CartesianFESpace
-from cardiac_ablation_ecm2_tpu.fem.fespace import element_node_coords
-from cardiac_ablation_ecm2_tpu.fem.masked_lattice import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.cartesian import CartesianFESpace
+from cardiac_ablation_ecm2.fem.fespace import element_node_coords
+from cardiac_ablation_ecm2.fem.masked_lattice import (
     masked_lattice_essential,
 )
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh.cardiac import (
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh.cardiac import (
     make_cardiac_hex_lattice,
     make_cardiac_hex_mesh,
 )
-from cardiac_ablation_ecm2_tpu.models import bioheat
+from cardiac_ablation_ecm2.models import bioheat
 
 
 def _step(op, fes, dt=0.25):

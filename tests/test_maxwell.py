@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,

@@ -4,10 +4,10 @@ LOBPCG + algebraic gradient projection on ND spaces."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-from cardiac_ablation_ecm2_tpu.linalg.maxwell_eigen import maxwell_eigenvalues
-from cardiac_ablation_ecm2_tpu.mesh.mesh import (
+from cardiac_ablation_ecm2.fem.fespace import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+from cardiac_ablation_ecm2.linalg.maxwell_eigen import maxwell_eigenvalues
+from cardiac_ablation_ecm2.mesh.mesh import (
     make_cartesian_2d,
     make_cartesian_3d,
 )
@@ -49,7 +49,7 @@ def test_anisotropic_pencil_matches_dense():
     generalized eigensolve on the PEC-restricted pencil."""
     from scipy.linalg import eigh
 
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import build_nd_operator
+    from cardiac_ablation_ecm2.ops.vecfe import build_nd_operator
 
     sig = np.array([[2.0, 0.4], [0.4, 1.0]])
     mesh = make_cartesian_2d(4, 4)

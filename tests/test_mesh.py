@@ -4,7 +4,7 @@ tests/unit/mesh/)."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.mesh import (
     Mesh,
     make_cartesian_2d,
     make_cartesian_2d_tri,
@@ -13,7 +13,7 @@ from cardiac_ablation_ecm2_tpu.mesh import (
     unique_edges,
     unique_faces,
 )
-from cardiac_ablation_ecm2_tpu.fem import FESpace, geom_factors_for
+from cardiac_ablation_ecm2.fem import FESpace, geom_factors_for
 
 
 def total_volume(mesh, order=1):

@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_norm
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.fem.gridfunction import l2_norm
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.models import poisson
 
 # (mesh, order) -> (ndof, mfem_integral, mfem_l2)
 GOLDEN = {
@@ -43,7 +43,7 @@ def test_poisson_functionals_match_mfem(mesh_name, order):
                         max_iter=4000)
     assert res.converged
     assert res.fes.ndof_scalar == ndof_ref    # identical dof counts
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     b = domain_lf(res.fes, None)
     integral = float(jnp.vdot(b, res.u))

@@ -6,14 +6,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.mixed import (
+from cardiac_ablation_ecm2.fem.mixed import (
     MixedFESpace,
     MixedPAOperator,
     make_mixed_strip,
     mixed_domain_lf,
 )
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
 
 
 @pytest.mark.parametrize("p", [1, 2, 3])
@@ -100,8 +100,8 @@ def test_gmsh_compass_mixed():
     path = "/root/reference/data/compass.msh"
     if not os.path.exists(path):
         pytest.skip("reference data not mounted")
-    from cardiac_ablation_ecm2_tpu.io.gmsh import read_gmsh
-    from cardiac_ablation_ecm2_tpu.fem.mixed import MixedMesh
+    from cardiac_ablation_ecm2.io.gmsh import read_gmsh
+    from cardiac_ablation_ecm2.fem.mixed import MixedMesh
 
     mesh, names = read_gmsh(path)
     assert isinstance(mesh, MixedMesh)
@@ -131,8 +131,8 @@ def test_mfem_v10_mixed_mesh():
     path = "/root/reference/data/square-mixed.mesh"
     if not os.path.exists(path):
         pytest.skip("reference data not mounted")
-    from cardiac_ablation_ecm2_tpu.fem.mixed import MixedMesh
-    from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
+    from cardiac_ablation_ecm2.fem.mixed import MixedMesh
+    from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
 
     mesh = read_mfem_mesh(path)
     assert isinstance(mesh, MixedMesh)
@@ -156,12 +156,12 @@ def test_mfem_v10_mixed_mesh():
 
 def test_mixed_roundtrip_and_vtu(tmp_path):
     """MixedMesh → MFEM v1.0 text → read back; VTU export smoke."""
-    from cardiac_ablation_ecm2_tpu.fem.mixed import MixedMesh
-    from cardiac_ablation_ecm2_tpu.io.mesh_io import (
+    from cardiac_ablation_ecm2.fem.mixed import MixedMesh
+    from cardiac_ablation_ecm2.io.mesh_io import (
         read_mfem_mesh,
         write_mfem_mesh,
     )
-    from cardiac_ablation_ecm2_tpu.io.vtu import write_vtu_mixed
+    from cardiac_ablation_ecm2.io.vtu import write_vtu_mixed
 
     mesh = make_mixed_strip(2)
     text = write_mfem_mesh(mesh)

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
-from cardiac_ablation_ecm2_tpu.fem.mixed import (
+from cardiac_ablation_ecm2.fem.geometry import Geometry
+from cardiac_ablation_ecm2.fem.mixed import (
     MixedFESpace,
     MixedPAOperator,
     make_mixed_cube,
     mixed_domain_lf,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+from cardiac_ablation_ecm2.linalg.solvers import cg
 
 
 def test_mesh_integrity():
@@ -65,7 +65,7 @@ def _solve(n):
     # L2 error by block quadrature
     err2 = 0.0
     for gf, db, R in zip(fes.gfs, fes.dbs, fes.restrictions):
-        from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
+        from cardiac_ablation_ecm2.fem.quadinterp import eval_values
 
         uq = eval_values(db, R.mult(u))
         eq = jnp.asarray(exact(np.asarray(gf.x)))
@@ -173,8 +173,8 @@ def test_order3_poisson_convergence():
 def test_order2_hex_wedge_conformity():
     """Hex + wedge order-2 blocks conform through the generic entity keys
     (wedge quad-face traces are GLL⊗GLL, matching hex Q2 faces)."""
-    from cardiac_ablation_ecm2_tpu.fem.mixed import MixedMesh
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.fem.mixed import MixedMesh
+    from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d
 
     h = make_cartesian_3d(2, 2, 2)
     cent = h.vertices[h.elements].mean(axis=1)

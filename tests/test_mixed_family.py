@@ -7,11 +7,11 @@ polynomial quadrature identities and adjoint/antisymmetry structure."""
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf, domain_lf_vector
-from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf, domain_lf_vector
+from cardiac_ablation_ecm2.ops.mixed_vecfe import (
     mixed_cross_grad_grad, mixed_cross_product, mixed_directional_derivative,
     mixed_dot_product, mixed_grad_grad, mixed_scalar_cross_product,
     mixed_vector_product)
@@ -119,9 +119,9 @@ def test_cross_grad_grad_antisymmetric():
 def test_cross_curl_polynomial():
     """(V × curl u, w) on ND1: u = (z, x, y) has curl = (1, 1, 1), so the
     result is the constant field V × (1,1,1)."""
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import mixed_cross_curl
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (build_nd_operator,
+    from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import mixed_cross_curl
+    from cardiac_ablation_ecm2.ops.vecfe import (build_nd_operator,
                                                      vecfe_linear_form)
 
     mesh = make_cartesian_3d(2, 2, 2)
@@ -130,7 +130,7 @@ def test_cross_curl_polynomial():
     V = np.array([1.0, 2.0, 3.0])
 
     # project u = (z, x, y) onto ND via a mass solve
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     op = build_nd_operator(nd, mass_coeff=1.0, nq1d=3)
     b = vecfe_linear_form(op, lambda x: np.stack(
@@ -148,7 +148,7 @@ def test_cross_curl_polynomial():
 
 def test_cross_grad_polynomial():
     """(V × ∇u, w) with u = x + 2y + 3z: ∇u constant, result constant."""
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import mixed_cross_grad
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import mixed_cross_grad
 
     mesh = make_cartesian_3d(2, 2, 2)
     S = FESpace(mesh, 1)
@@ -166,7 +166,7 @@ def test_cross_grad_polynomial():
 def test_scalar_weak_divergence_adjoint():
     """−(V u, ∇w) is the negative adjoint of the directional derivative
     (V·∇w, u)."""
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import (
         mixed_scalar_weak_divergence)
 
     mesh = make_cartesian_2d(3, 3)

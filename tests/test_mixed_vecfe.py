@@ -9,21 +9,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_simplex import (
+from cardiac_ablation_ecm2.fem.fe_vector_simplex import (
     NDSimplexSpace,
     RTSimplexSpace,
 )
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
-from cardiac_ablation_ecm2_tpu.fem.fespace import FESpace, L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.mesh import (
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
+from cardiac_ablation_ecm2.fem.fespace import FESpace, L2FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (
+from cardiac_ablation_ecm2.ops.mixed_vecfe import (
     mixed_scalar_curl,
     mixed_scalar_mass,
     mixed_vector_curl,
@@ -33,7 +33,7 @@ from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (
     mixed_weak_curl,
     vectorfe_divergence,
 )
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,
@@ -43,7 +43,7 @@ from tests.test_fespace import permute_vertices
 
 def _proj_vec(space, fn, nq1d):
     """L2 projection into an ND/RT space (exact for in-space fields)."""
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import _kind
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import _kind
 
     build = build_nd_operator if _kind(space) == "nd" else build_rt_operator
     op = build(space, mass_coeff=1.0, nq1d=nq1d)
@@ -97,7 +97,7 @@ def test_vector_gradient_3d(name, make):
 
 def _vec_tables_of(op, space, nq1d):
     """Recreate gf for integral evaluation (same rule as the operator)."""
-    from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import _vec_tables
+    from cardiac_ablation_ecm2.ops.mixed_vecfe import _vec_tables
 
     return _vec_tables(space, nq1d, None)
 
@@ -222,8 +222,8 @@ def test_vectorfe_divergence(mk):
 def test_divergence_matches_rt0_block_op():
     """General vectorfe_divergence reduces to the RT0×P0 fast path used by
     the Darcy block system (ops.block.mixed_divergence)."""
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector import RTSpace
-    from cardiac_ablation_ecm2_tpu.ops.block import mixed_divergence
+    from cardiac_ablation_ecm2.fem.fe_vector import RTSpace
+    from cardiac_ablation_ecm2.ops.block import mixed_divergence
 
     mesh = make_cartesian_2d(3, 3)
     rt0 = RTSpace(mesh)

@@ -7,9 +7,10 @@ f32 rounding, including the row permutation round trip.
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import scipy.sparse as sp
 
-from cardiac_ablation_ecm2_tpu.ops.ell import MultiELLOperator
+from cardiac_ablation_ecm2.ops.ell import MultiELLOperator
 
 
 def _random_varwidth(n=700, seed=0):
@@ -40,9 +41,9 @@ def test_multi_ell_matches_scipy():
 def test_multi_ell_fem_matrix():
     import jax
 
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_tet
-    from cardiac_ablation_ecm2_tpu.ops.bilinearform import BilinearForm
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2.ops.bilinearform import BilinearForm
 
     mesh = make_cartesian_3d_tet(4, 4, 4)
     fes = FESpace(mesh, 2)
@@ -55,7 +56,7 @@ def test_multi_ell_fem_matrix():
 
 
 def test_multi_ell_pair_combined():
-    from cardiac_ablation_ecm2_tpu.ops.ell import MultiELLPair
+    from cardiac_ablation_ecm2.ops.ell import MultiELLPair
 
     A = _random_varwidth(seed=3)
     B = _random_varwidth(seed=4)
@@ -72,12 +73,12 @@ def test_multi_ell_pair_combined():
 def test_bioheat_ell_apply_matches_pa():
     """assembled_apply='ell' must reproduce the PA operator applies exactly
     (straight tets + constant coefficients: both quadratures are exact, so
-    the operators are IDENTICAL up to rounding).  Full-step equivalence is
-    covered on TPU by the bench; interpret-mode pallas makes a CPU step
-    prohibitively slow, so this pins the applies."""
-    from cardiac_ablation_ecm2_tpu.fem import FESpace
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_tet
-    from cardiac_ablation_ecm2_tpu.models import bioheat
+    the operators are IDENTICAL up to rounding).  Full-step equivalence at
+    cardiac scale is checked on the GPU by chip_smoke.py; this pins the
+    applies."""
+    from cardiac_ablation_ecm2.fem import FESpace
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2.models import bioheat
 
     mesh = make_cartesian_3d_tet(5, 5, 5)
     kw = dict(rho_c=3.6e6, k=0.54, w_cb=2e4, T_a=37.0,
@@ -103,3 +104,60 @@ def test_bioheat_ell_apply_matches_pa():
     np.testing.assert_allclose(np.asarray(ops["off"].Mrc_diag),
                                np.asarray(ops["ell"]._ell.diag0),
                                rtol=1e-10)
+
+
+def _bucket_cases():
+    """A CSR matrix with the bucket edge cases."""
+    rng = np.random.default_rng(11)
+    n = 120
+    # rows with exactly 0, and exactly 8 / 16 / 24 (= bucket edges) nnz,
+    # plus one row one past an edge
+    widths = np.array([0, 8, 16, 24, 25, 0, 7, 9] * (n // 8))
+    rows = np.repeat(np.arange(n), widths)
+    cols = np.concatenate([rng.choice(n, size=k, replace=False)
+                           for k in widths])
+    return sp.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                         shape=(n, n))
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "rows_at_edges",
+                                  "f32_vs_f64"])
+def test_ell_buckets(case):
+    from cardiac_ablation_ecm2.ops.ell import BUCKET_EDGES, _build_buckets
+
+    A = _bucket_cases()
+    nnz = np.diff(A.indptr)
+    x = np.random.default_rng(12).standard_normal(A.shape[0])
+    if case == "empty_rows":
+        op = MultiELLOperator.from_csr(A, dtype="float64")
+        y = np.asarray(op.mult(jnp.asarray(x)))
+        assert np.all(y[nnz == 0] == 0.0)
+        np.testing.assert_allclose(y, A @ x, rtol=1e-12, atol=1e-12)
+        # an all-empty matrix has one zero-width bucket and applies to 0
+        Z = sp.csr_matrix((5, 5))
+        z = MultiELLOperator.from_csr(Z, dtype="float64")
+        assert np.all(np.asarray(z.mult(jnp.ones(5))) == 0.0)
+    elif case == "rows_at_edges":
+        buckets, sizes, rank = _build_buckets(
+            A.indptr, A.indices, [A.data], A.shape[0], "float64",
+            BUCKET_EDGES)
+        widths = [int(c.shape[0]) for c, _ in buckets]
+        # a row of exactly `edge` nnz lands in that edge's bucket (no pad)
+        assert widths == [8, 16, 24, 25]
+        assert sizes == (int(np.sum(nnz <= 8)),
+                         int(np.sum((nnz > 8) & (nnz <= 16))),
+                         int(np.sum(nnz == 24)), int(np.sum(nnz == 25)))
+        assert sorted(np.asarray(rank).tolist()) == list(range(A.shape[0]))
+        op = MultiELLOperator.from_csr(A, dtype="float64")
+        np.testing.assert_allclose(np.asarray(op.mult(jnp.asarray(x))),
+                                   A @ x, rtol=1e-12, atol=1e-12)
+    else:
+        y64 = np.asarray(MultiELLOperator.from_csr(A, dtype="float64")
+                         .mult(jnp.asarray(x)))
+        op32 = MultiELLOperator.from_csr(A, dtype="float32")
+        assert all(v.dtype == jnp.float32 for _, v in op32.buckets)
+        y32 = np.asarray(op32.mult(jnp.asarray(x, jnp.float32)))
+        assert y32.dtype == np.float32
+        # f32 rounding of ≤25-term sums of O(1) products
+        scale = np.abs(A) @ np.abs(x)
+        assert np.all(np.abs(y32 - y64) <= 1e-5 * scale + 1e-30)

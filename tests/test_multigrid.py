@@ -5,14 +5,14 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.transfer import HTransfer, PTransfer
-from cardiac_ablation_ecm2_tpu.linalg.multigrid import make_h_multigrid, make_p_multigrid
-from cardiac_ablation_ecm2_tpu.linalg.smoothers import jacobi
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm, ConstrainedOperator
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.transfer import HTransfer, PTransfer
+from cardiac_ablation_ecm2.linalg.multigrid import make_h_multigrid, make_p_multigrid
+from cardiac_ablation_ecm2.linalg.smoothers import jacobi
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops import BilinearForm, ConstrainedOperator
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def test_p_transfer_exactness():
@@ -20,7 +20,7 @@ def test_p_transfer_exactness():
     mesh = make_cartesian_2d(4, 4)
     fc, ff = FESpace(mesh, 2), FESpace(mesh, 4)
     tr = PTransfer(fc, ff)
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
+    from cardiac_ablation_ecm2.fem.gridfunction import project
 
     def f(x):
         x = np.asarray(x)
@@ -46,7 +46,7 @@ def test_h_transfer_exactness():
     mesh_f = mesh_c.uniform_refinement()
     fc, ff = FESpace(mesh_c, 2), FESpace(mesh_f, 2)
     tr = HTransfer(fc, ff)
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
+    from cardiac_ablation_ecm2.fem.gridfunction import project
 
     def f(x):
         x = np.asarray(x)

@@ -4,9 +4,9 @@ Kovasznay-flow validation — the canonical NavierSolver test case."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.mesh import Mesh
-from cardiac_ablation_ecm2_tpu.models.navier import NavierSolver
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.mesh import Mesh
+from cardiac_ablation_ecm2.models.navier import NavierSolver
 
 RE = 40.0
 LAM = RE / 2 - np.sqrt(RE * RE / 4 + 4 * np.pi ** 2)
@@ -71,7 +71,7 @@ def test_navier_3d_dissipation_and_divergence():
     """3D run: a wall-vanishing divergence-free initial vortex decays
     monotonically (viscous dissipation) and stays discretely
     divergence-free through the 3D pressure projection."""
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
 
     def u0(x):
         x = np.asarray(x)

@@ -6,23 +6,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import (
     basis_for,
     geom_factors_for,
     restriction_for,
 )
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.ncmesh import (
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.ncmesh import (
     ISO,
     X,
     Y,
     make_nc,
     refine_quads_aniso,
 )
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.ops import BilinearForm
 
 
 def test_x_split_geometry():

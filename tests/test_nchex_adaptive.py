@@ -5,14 +5,14 @@ stay conforming at every step."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.estimators import zz_estimator
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.ncmesh import make_nc, refine_hexes
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem.estimators import zz_estimator
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.ncmesh import make_nc, refine_hexes
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def u_exact(x):

@@ -7,15 +7,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.build import (basis_for, geom_factors_for,
+from cardiac_ablation_ecm2.fem.build import (basis_for, geom_factors_for,
                                                  restriction_for)
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.ncmesh import (ISO3, X3, Y3, Z3, make_nc,
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.ncmesh import (ISO3, X3, Y3, Z3, make_nc,
                                                    refine_hexes_aniso)
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.ops import BilinearForm
 
 
 def test_x_split_conforming():
@@ -167,7 +167,7 @@ def test_boundary_layer_amr():
             "diffusion").assemble()
         Ac = spc.constrained_operator(A_L.mult)
 
-        from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+        from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
         b = spc.restrict_t(domain_lf(spc.fes, rhs))
         ess = spc.essential_dofs(None)

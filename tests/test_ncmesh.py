@@ -6,15 +6,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for, restriction_for
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.ncmesh import make_nc, refine_quads
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for, restriction_for
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.ncmesh import make_nc, refine_quads
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def refined_nc(marks_fn=None, n=4, rounds=1):
@@ -98,9 +98,9 @@ def test_nc_poisson_adaptive_loop():
     """ex6-on-quads: NC-AMR Poisson beats uniform at comparable dofs on the
     corner-singular L-shape problem."""
     from test_amr import lshape_mesh, u_singular  # reuse singular solution
-    from cardiac_ablation_ecm2_tpu.fem.estimators import zz_estimator
-    from cardiac_ablation_ecm2_tpu.mesh import Mesh
-    from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
+    from cardiac_ablation_ecm2.fem.estimators import zz_estimator
+    from cardiac_ablation_ecm2.mesh import Mesh
+    from cardiac_ablation_ecm2.fem.geometry import Geometry
 
     # L-shaped quad mesh
     full = make_cartesian_2d(4, 4, 2.0, 2.0)
@@ -144,7 +144,7 @@ def test_nc_poisson_adaptive_loop():
         x, info = cg(AC, b, rel_tol=1e-11, max_iter=4000)
         assert bool(info.converged)
         uL = sp.prolongate(x)
-        from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
+        from cardiac_ablation_ecm2.fem.gridfunction import l2_error
 
         return sp, uL, float(l2_error(fes, uL, u_singular))
 
@@ -165,8 +165,8 @@ def test_nc_poisson_adaptive_loop():
         if fes_u.ndof_scalar >= ndof_a:
             break
         mesh_u = mesh_u.uniform_refinement()
-    from cardiac_ablation_ecm2_tpu.models import poisson
-    from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
+    from cardiac_ablation_ecm2.models import poisson
+    from cardiac_ablation_ecm2.fem.gridfunction import l2_error
 
     res = poisson.solve(mesh_u, order=2, rhs=lambda x: 0 * np.asarray(x)[..., 0],
                         bc=u_singular, rel_tol=1e-11)

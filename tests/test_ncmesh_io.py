@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import geom_factors_for
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
 
 DATA = "/root/reference/data"
 
@@ -32,11 +32,11 @@ def test_ncmesh_leaf_stats(name):
 
 def test_ncmesh_solve_amr_quad():
     """Conforming NC solve end-to-end on the loaded iso-refined quad mesh."""
-    from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh.ncmesh import make_nc
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh.ncmesh import make_nc
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     m = read_mfem_mesh(f"{DATA}/amr-quad.mesh")
     nc = make_nc(m)

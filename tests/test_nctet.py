@@ -4,17 +4,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.build import (
+from cardiac_ablation_ecm2.fem.build import (
     basis_for,
     geom_factors_for,
     restriction_for,
 )
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d_tet
-from cardiac_ablation_ecm2_tpu.mesh.nctet import make_nc_tet, refine_tets_nc
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d_tet
+from cardiac_ablation_ecm2.mesh.nctet import make_nc_tet, refine_tets_nc
+from cardiac_ablation_ecm2.ops import BilinearForm
 
 
 def _refined(rounds=1, seed_marks=None):
@@ -42,7 +42,7 @@ def test_refinement_integrity():
 def test_two_to_one_balance():
     """Refining the same corner twice forces the neighbors (no edge may
     carry both a midpoint and a quarter-point)."""
-    from cardiac_ablation_ecm2_tpu.mesh.nctet import _overrefined_edges
+    from cardiac_ablation_ecm2.mesh.nctet import _overrefined_edges
 
     nc = _refined(rounds=2)
     assert not _overrefined_edges(nc.mesh)
@@ -90,7 +90,7 @@ def test_nc_tet_poisson_adaptive():
         fes = sp.fes
         A_L = BilinearForm(fes).add_domain_integrator(
             "diffusion").assemble()
-        from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+        from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
         k2 = 3 * np.pi ** 2
         f = lambda x: k2 * np.prod(np.sin(np.pi * np.asarray(x)), axis=-1)
@@ -102,7 +102,7 @@ def test_nc_tet_poisson_adaptive():
             A_L.mult(sp.prolongate(v * m))) * m + v * (1 - m)
         u, info = cg(AC, b * m, rel_tol=1e-10, max_iter=4000)
         assert bool(info.converged)
-        from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
+        from cardiac_ablation_ecm2.fem.gridfunction import l2_error
 
         return float(l2_error(fes, sp.prolongate(u), exact))
 
@@ -136,7 +136,7 @@ def test_order2_slave_count_and_quadratic_exactness():
     uL = sp2.prolongate(uc)
     all_coords = np.zeros((sp2.fes.ndof_scalar, 3))
     gm = sp2.fes.gather_map.astype(np.int64)
-    from cardiac_ablation_ecm2_tpu.fem.fespace import element_node_coords
+    from cardiac_ablation_ecm2.fem.fespace import element_node_coords
 
     X = element_node_coords(nc.mesh, 2)
     all_coords[gm.reshape(-1)] = X.reshape(-1, 3)
@@ -177,7 +177,7 @@ def test_nc_tet_poisson_adaptive_order2():
         fes = sp.fes
         A_L = BilinearForm(fes).add_domain_integrator(
             "diffusion").assemble()
-        from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+        from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
         k2 = 3 * np.pi ** 2
         f = lambda x: k2 * np.prod(np.sin(np.pi * np.asarray(x)), axis=-1)
@@ -189,7 +189,7 @@ def test_nc_tet_poisson_adaptive_order2():
             A_L.mult(sp.prolongate(v * m))) * m + v * (1 - m)
         u, info = cg(AC, b * m, rel_tol=1e-10, max_iter=6000)
         assert bool(info.converged)
-        from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
+        from cardiac_ablation_ecm2.fem.gridfunction import l2_error
 
         return float(l2_error(fes, sp.prolongate(u), exact))
 

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_2d_tri
-from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
-from cardiac_ablation_ecm2_tpu.ops.vecfe_r import (
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_2d_tri
+from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
+from cardiac_ablation_ecm2.ops.vecfe_r import (
     NDR1DSpace,
     NDR2DSpace,
     RTR2DSpace,

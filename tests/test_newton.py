@@ -6,14 +6,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for, restriction_for
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.newton import newton
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import diffusion as dmod
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for, restriction_for
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.newton import newton
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops import diffusion as dmod
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def test_newton_algebraic():

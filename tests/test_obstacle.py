@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg.obstacle import obstacle_solve
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg.obstacle import obstacle_solve
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 def _setup(n=12):
@@ -44,7 +44,7 @@ def test_kkt_conditions():
 
 def test_no_contact_reduces_to_linear():
     """A deep obstacle never binds: the solution equals the plain solve."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     fes, A, b, _psi, fm = _setup(8)
     psi = jnp.full(fes.ndof_scalar, -10.0)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.linalg import ode
+from cardiac_ablation_ecm2.linalg import ode
 
 
 A = np.array([[0.0, 1.0], [-4.0, -0.1]])

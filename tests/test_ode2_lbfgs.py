@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cardiac_ablation_ecm2_tpu.linalg import ode2
-from cardiac_ablation_ecm2_tpu.linalg.newton import lbfgs
+from cardiac_ablation_ecm2.linalg import ode2
+from cardiac_ablation_ecm2.linalg.newton import lbfgs
 
 
 class Oscillator:
@@ -121,7 +121,7 @@ def test_lbfgs_rosenbrock():
 def test_symplectic_energy_conservation():
     """Harmonic oscillator: SIA conserves energy over long horizons where
     explicit Euler blows up; order 2 and 4 converge at their rates."""
-    from cardiac_ablation_ecm2_tpu.linalg.ode2 import SIASolver
+    from cardiac_ablation_ecm2.linalg.ode2 import SIASolver
 
     class Osc:
         def velocity(self, t, p):

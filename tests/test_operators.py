@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d,
@@ -111,8 +111,8 @@ def test_mass_matrix_total():
 
 def test_packed_diffusion_matches_full():
     """Packed symmetric qdata path == full-matrix qdata path."""
-    from cardiac_ablation_ecm2_tpu.ops import diffusion as dmod
-    from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for, restriction_for
+    from cardiac_ablation_ecm2.ops import diffusion as dmod
+    from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for, restriction_for
 
     for name in ("quad", "hex"):
         mesh = make_mesh(name)
@@ -133,8 +133,8 @@ def test_packed_diffusion_matches_full():
 
 
 def test_setup_packed_matches_pack_sym():
-    from cardiac_ablation_ecm2_tpu.ops import diffusion as dmod
-    from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
+    from cardiac_ablation_ecm2.ops import diffusion as dmod
+    from cardiac_ablation_ecm2.fem.build import geom_factors_for
 
     for name in ("quad", "hex"):
         mesh = make_mesh(name)

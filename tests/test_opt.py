@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.linalg.opt import nnls, slbqp
+from cardiac_ablation_ecm2.linalg.opt import nnls, slbqp
 
 
 def test_slbqp_projects_onto_constraint():

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from cardiac_ablation_ecm2_tpu.io.orbax_ckpt import ShardedCheckpointer
+from cardiac_ablation_ecm2.io.orbax_ckpt import ShardedCheckpointer
 
 
 @pytest.fixture

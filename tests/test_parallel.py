@@ -7,12 +7,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import restriction_for
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import poisson as serial_poisson
-from cardiac_ablation_ecm2_tpu.parallel import partition, pfespace
-from cardiac_ablation_ecm2_tpu.parallel import poisson as ppoisson
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import restriction_for
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.models import poisson as serial_poisson
+from cardiac_ablation_ecm2.parallel import partition, pfespace
+from cardiac_ablation_ecm2.parallel import poisson as ppoisson
 
 
 def test_rcb_balance():
@@ -28,7 +28,7 @@ def test_rcb_balance():
 @pytest.mark.parametrize("ndev", [2, 4, 8])
 def test_partitioned_scatter_consistency(ndev):
     """Local scatter + halo exchange == serial Rᵀ for random E-vectors."""
-    from cardiac_ablation_ecm2_tpu.parallel import ops as pops
+    from cardiac_ablation_ecm2.parallel import ops as pops
     from jax.sharding import Mesh as DeviceMesh, PartitionSpec as P
 
     try:

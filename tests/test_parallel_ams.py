@@ -8,9 +8,9 @@ ppermute halo machinery, Chebyshev auxiliary H1 sweeps.  Run on the
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.parallel import pvecfe
+from cardiac_ablation_ecm2.fem.fe_vector import NDSpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.parallel import pvecfe
 
 
 def _rhs(x):

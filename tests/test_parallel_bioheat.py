@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import bioheat as ser_bio
-from cardiac_ablation_ecm2_tpu.parallel import bioheat as par_bio
-from cardiac_ablation_ecm2_tpu.parallel.pfespace import scatter_global
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.models import bioheat as ser_bio
+from cardiac_ablation_ecm2.parallel import bioheat as par_bio
+from cardiac_ablation_ecm2.parallel.pfespace import scatter_global
 
 
 @pytest.mark.parametrize("ndev", [4, 8])
@@ -59,8 +59,8 @@ def test_parallel_bioheat_matches_serial(ndev):
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_cartesian_parallel_matches_serial(ndev):
     """Structured slab-partitioned bioheat == serial operator to 1e-8."""
-    from cardiac_ablation_ecm2_tpu.parallel import cartesian_bioheat as cb
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.parallel import cartesian_bioheat as cb
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
 
     L = 0.04
     nx, ny, nz = 3, 3, 4
@@ -95,7 +95,7 @@ def test_cartesian_parallel_matches_serial(ndev):
 
     u_par = sim.gather(T_loc)   # lex lattice ordering
     # compare via coordinates (serial FESpace ordering differs)
-    from cardiac_ablation_ecm2_tpu.fem.cartesian import CartesianFESpace
+    from cardiac_ablation_ecm2.fem.cartesian import CartesianFESpace
 
     cfes = CartesianFESpace(mesh, 2, (nx, ny, nz), (L, L, L))
     order_c = np.lexsort(np.round(cfes.dof_coords.T, 9))
@@ -108,7 +108,7 @@ def test_cartesian_parallel_matches_serial(ndev):
 def test_parallel_bioheat_cardiac_tet_matches_serial():
     """Config-5 workload shape: the sharded step on a REAL unstructured
     cardiac tet mesh (Delaunay + electrode notch) matches serial to 1e-8."""
-    from cardiac_ablation_ecm2_tpu.mesh.cardiac import make_cardiac_tet_mesh
+    from cardiac_ablation_ecm2.mesh.cardiac import make_cardiac_tet_mesh
 
     L = 0.04
     mesh = make_cardiac_tet_mesh(8, lengths=(L, L, L / 2),

@@ -6,14 +6,14 @@ ParL2FaceRestriction (fem/prestriction.hpp:139)."""
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem.build import basis_for, geom_factors_for
-from cardiac_ablation_ecm2_tpu.fem.fespace import L2FESpace
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values_t
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.dg_advection import DGAdvection, project_l2
-from cardiac_ablation_ecm2_tpu.ops.dg_diffusion import DGDiffusion
-from cardiac_ablation_ecm2_tpu.parallel import dg as pdg
+from cardiac_ablation_ecm2.fem.build import basis_for, geom_factors_for
+from cardiac_ablation_ecm2.fem.fespace import L2FESpace
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values_t
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops.dg_advection import DGAdvection, project_l2
+from cardiac_ablation_ecm2.ops.dg_diffusion import DGDiffusion
+from cardiac_ablation_ecm2.parallel import dg as pdg
 
 
 def _vel(x):

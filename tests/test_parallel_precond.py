@@ -6,13 +6,13 @@ CG iteration counts vs Jacobi.  Reference: OperatorChebyshevSmoother
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg import ode
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import bioheat as sbio
-from cardiac_ablation_ecm2_tpu.models import poisson as spoisson
-from cardiac_ablation_ecm2_tpu.parallel import bioheat as pbio
-from cardiac_ablation_ecm2_tpu.parallel import poisson as ppoisson
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg import ode
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.models import bioheat as sbio
+from cardiac_ablation_ecm2.models import poisson as spoisson
+from cardiac_ablation_ecm2.parallel import bioheat as pbio
+from cardiac_ablation_ecm2.parallel import poisson as ppoisson
 
 
 def test_sharded_poisson_chebyshev():
@@ -135,10 +135,10 @@ def test_sharded_poisson_lor_vcycle():
 def test_sharded_lor_matches_serial_lor_mg():
     """Serial make_lor_multigrid and the in-shard LOR V-cycle precondition
     the same system to the same iteration count (same math, 8 devices)."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
-    from cardiac_ablation_ecm2_tpu.ops.lor_device import make_lor_multigrid
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.ops import BilinearForm
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops.lor_device import make_lor_multigrid
 
     mesh = make_cartesian_3d(5, 5, 5)
     fes = FESpace(mesh, 2)

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.particles import ParticleSet
-from cardiac_ablation_ecm2_tpu.parallel.partition import partition_mesh
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.particles import ParticleSet
+from cardiac_ablation_ecm2.parallel.partition import partition_mesh
 
 
 def test_locate_and_interpolate():

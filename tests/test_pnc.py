@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.ncfespace import NCFESpace
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.mesh.ncmesh import make_nc, refine_quads
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
-from cardiac_ablation_ecm2_tpu.parallel import pnc
+from cardiac_ablation_ecm2.fem.ncfespace import NCFESpace
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.mesh.ncmesh import make_nc, refine_quads
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.parallel import pnc
 
 
 def _nc_mesh(rounds=2, n=4):

@@ -5,9 +5,9 @@ tests/convergence/rates.cpp), and CG+Jacobi behavior."""
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import h1_seminorm_error, l2_error
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.models import poisson
+from cardiac_ablation_ecm2.fem.gridfunction import h1_seminorm_error, l2_error
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.models import poisson
 
 
 def test_exact_polynomial_2d():
@@ -125,8 +125,8 @@ def test_curved_annulus_high_order():
     """Curved (isoparametric) geometry: Poisson on a quarter annulus mapped
     from a rectangle; order-3 elements with order-3 geometry must converge at
     ~4th order in L2 (straight Q1 geometry would stall at 2nd order)."""
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import curve_mesh
-    from cardiac_ablation_ecm2_tpu.fem.convergence import ConvergenceStudy
+    from cardiac_ablation_ecm2.mesh.mesh import curve_mesh
+    from cardiac_ablation_ecm2.fem.convergence import ConvergenceStudy
 
     def annulus(x):
         x = np.asarray(x)

@@ -5,12 +5,12 @@ import jax
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.point_eval import evaluate_at_points
-from cardiac_ablation_ecm2_tpu.parallel import pfespace
-from cardiac_ablation_ecm2_tpu.parallel.pointeval import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.point_eval import evaluate_at_points
+from cardiac_ablation_ecm2.parallel import pfespace
+from cardiac_ablation_ecm2.parallel.pointeval import (
     interpolate_sharded,
     prepare,
 )

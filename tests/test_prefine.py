@@ -15,11 +15,11 @@ try:
 except ImportError:
     from jax.experimental.shard_map import shard_map
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.transfer import HTransfer
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.parallel import pfespace
-from cardiac_ablation_ecm2_tpu.parallel.refine import refine_uniform
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.transfer import HTransfer
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.parallel import pfespace
+from cardiac_ablation_ecm2.parallel.refine import refine_uniform
 
 
 @pytest.mark.parametrize("dim,order,ndev", [(2, 2, 8), (3, 1, 8), (2, 3, 5)])

@@ -18,16 +18,16 @@ try:
 except ImportError:
     from jax.experimental.shard_map import shard_map
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.submesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.submesh import (
     create_from_boundary,
     create_from_domain,
     create_transfer_map,
 )
-from cardiac_ablation_ecm2_tpu.parallel import pfespace
-from cardiac_ablation_ecm2_tpu.parallel.psubmesh import (
+from cardiac_ablation_ecm2.parallel import pfespace
+from cardiac_ablation_ecm2.parallel.psubmesh import (
     build_sub,
     transfer_to_parent,
     transfer_to_sub,
@@ -110,7 +110,7 @@ def test_boundary_par_transfer():
 
 def test_inherited_partition_is_consistent():
     """Every sub element is assigned to its parent element's device."""
-    from cardiac_ablation_ecm2_tpu.parallel.psubmesh import sub_partition
+    from cardiac_ablation_ecm2.parallel.psubmesh import sub_partition
 
     parent = two_material_3d()
     sm = create_from_domain(parent, [2])

@@ -6,23 +6,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_simplex import (
+from cardiac_ablation_ecm2.fem.fe_vector_ho import NDSpaceHO, RTSpaceHO
+from cardiac_ablation_ecm2.fem.fe_vector_simplex import (
     NDSimplexSpace,
     RTSimplexSpace,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.mesh import (
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.mesh import (
     make_cartesian_2d_tri,
     make_cartesian_3d,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,
 )
-from cardiac_ablation_ecm2_tpu.parallel import pvecfe
+from cardiac_ablation_ecm2.parallel import pvecfe
 from tests.test_fespace import permute_vertices
 
 

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.pyramid2 import (
+from cardiac_ablation_ecm2.fem.pyramid2 import (
     PYRAMID_P2_NODES,
     PyramidP2Space,
     pyramid_p2_basis_matrices,
     pyramid_p2_operator,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d_pyramid
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d_pyramid
 
 
 def test_nodal_basis_and_p2_reproduction():

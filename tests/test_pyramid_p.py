@@ -5,22 +5,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import (
     basis_for,
     geom_factors_for,
     restriction_for,
 )
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.fem.pyramid_p import (
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.fem.pyramid_p import (
     pyramid_nodes,
     pyramid_num_dofs,
     pyramid_p_basis_matrices,
 )
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_pyramid
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d_pyramid
+from cardiac_ablation_ecm2.ops import BilinearForm
 
 
 @pytest.mark.parametrize("p", [4, 5, 6])
@@ -127,7 +127,7 @@ def test_vertex_permutation_projection_exactness_p5(seed):
     edge-flip / face-orientation canonicalization in _pyramid_p_keys is hit
     on every branch, then check degree-5 projection exactness — conformity
     + orientation maps must agree across all permuted element interfaces."""
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import Mesh
+    from cardiac_ablation_ecm2.mesh.mesh import Mesh
 
     base = make_cartesian_3d_pyramid(2, 2, 2)
     rng = np.random.default_rng(seed)
@@ -166,7 +166,7 @@ def test_poisson_galerkin_exactness_p4():
         return -(2 * x[..., 1] ** 2 + 2 * x[..., 0] ** 2
                  + 12 * x[..., 2] ** 2)
 
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     b = domain_lf(fes, f_fn)
     A = BilinearForm(fes).add_domain_integrator("diffusion").assemble()

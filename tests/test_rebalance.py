@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.parallel import pfespace
-from cardiac_ablation_ecm2_tpu.parallel.partition import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.parallel import pfespace
+from cardiac_ablation_ecm2.parallel.partition import (
     element_centroids,
     rcb_weighted,
 )
-from cardiac_ablation_ecm2_tpu.parallel.rebalance import (
+from cardiac_ablation_ecm2.parallel.rebalance import (
     repartition,
     transfer_map,
 )

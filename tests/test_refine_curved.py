@@ -14,13 +14,13 @@ pin two ways:
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace, geom_factors_for
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace, geom_factors_for
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d,
     make_cartesian_2d_tri,
     make_cartesian_3d,
 )
-from cardiac_ablation_ecm2_tpu.mesh.mesh import curve_mesh
+from cardiac_ablation_ecm2.mesh.mesh import curve_mesh
 
 
 def quad_map_2d(x):
@@ -79,7 +79,7 @@ def test_refined_curved_space_builds():
     fes = FESpace(r, 2)
     assert fes.ndof_scalar > FESpace(m, 2).ndof_scalar
     # dof coords are single-valued across shared entities (continuity)
-    from cardiac_ablation_ecm2_tpu.fem.fespace import element_node_coords
+    from cardiac_ablation_ecm2.fem.fespace import element_node_coords
 
     Xe = element_node_coords(r, 2)
     coords = np.zeros((fes.ndof_scalar, 3))

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem.serendipity import (
+from cardiac_ablation_ecm2.fem.serendipity import (
     SerendipityFESpace,
     serendipity_basis_matrices,
     serendipity_nodes,
     serendipity_operator,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
 
 
 @pytest.mark.parametrize("p", [2, 3])

@@ -3,9 +3,9 @@
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models.spde import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models.spde import (
     matern_normalization,
     sample_matern_field,
 )

@@ -12,12 +12,12 @@ diffusion block."""
 import jax.numpy as jnp
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.linalg.krylov_extra import minres
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf_vector
-from cardiac_ablation_ecm2_tpu.ops.mixed_vecfe import (derivative, gradient,
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.linalg.krylov_extra import minres
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf_vector
+from cardiac_ablation_ecm2.ops.mixed_vecfe import (derivative, gradient,
                                                        vector_divergence)
 
 
@@ -56,7 +56,7 @@ def test_mixed_h1_pair_adjoint_and_exactness():
     X = np.asarray(V.dof_coords)
     u_poly = jnp.asarray(np.concatenate([X[:, 0] ** 2, X[:, 0] * X[:, 1]]))
     got = np.asarray(D.mult(u_poly))
-    from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+    from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
     want = np.asarray(domain_lf(Q, lambda x: 3 * x[..., 0]))
     assert np.allclose(got, want, atol=1e-13)

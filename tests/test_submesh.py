@@ -4,15 +4,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.submesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.submesh import (
     create_from_boundary,
     create_from_domain,
     create_transfer_map,
 )
-from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
+from cardiac_ablation_ecm2.fem.geometry import Geometry
 
 
 def two_material_mesh():

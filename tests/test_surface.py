@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
-from cardiac_ablation_ecm2_tpu.linalg.lobpcg import lobpcg
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh.surface import make_sphere_quad
-from cardiac_ablation_ecm2_tpu.ops.surface import surface_operators
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import geom_factors_for
+from cardiac_ablation_ecm2.linalg.lobpcg import lobpcg
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh.surface import make_sphere_quad
+from cardiac_ablation_ecm2.ops.surface import surface_operators
 
 
 def test_area_convergence():

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh.amr import bisect_marked_tets
-from cardiac_ablation_ecm2_tpu.mesh.mesh import make_cartesian_3d_tet
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh.amr import bisect_marked_tets
+from cardiac_ablation_ecm2.mesh.mesh import make_cartesian_3d_tet
+from cardiac_ablation_ecm2.ops import BilinearForm
 
 
 def _conforming(mesh):
@@ -17,7 +17,7 @@ def _conforming(mesh):
     boundary list (as sorted triples)."""
     from collections import Counter
 
-    from cardiac_ablation_ecm2_tpu.fem.geometry import FACES
+    from cardiac_ablation_ecm2.fem.geometry import FACES
 
     faces = Counter()
     for t in mesh.elements:

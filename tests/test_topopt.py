@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models.topopt import TopOpt
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d
+from cardiac_ablation_ecm2.models.topopt import TopOpt
 
 
 def _beam(nx=16, ny=8):
@@ -40,7 +40,7 @@ def test_full_density_matches_plain_elasticity():
     assert bool(info.converged)
     c = float(opt.b @ u)
     # compare with the packaged elasticity model on the same problem
-    from cardiac_ablation_ecm2_tpu.models import elasticity as emodel
+    from cardiac_ablation_ecm2.models import elasticity as emodel
 
     res = emodel.solve(opt.mesh, order=1, lam=1.0, mu=1.0,
                        fixed_bdr=[4], force_bdr=[2], force=(0.0, -1.0))

@@ -3,9 +3,9 @@ attribute; cut faces get bdr_max + trimmed-attribute numbering."""
 
 import numpy as np
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace, geom_factors_for
-from cardiac_ablation_ecm2_tpu.mesh import Mesh, make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.mesh.trim import trim
+from cardiac_ablation_ecm2.fem import FESpace, geom_factors_for
+from cardiac_ablation_ecm2.mesh import Mesh, make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.mesh.trim import trim
 
 
 def _two_attr(mesh, axis=0, split=0.5):

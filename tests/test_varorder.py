@@ -5,12 +5,12 @@ p-adaptive Poisson solve."""
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.varorder import (
+from cardiac_ablation_ecm2.fem.varorder import (
     VarOrderFESpace,
     diffusion_operator,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
 
 
 def _mixed_space(nx=4, ny=3):
@@ -88,7 +88,7 @@ def test_p_adaptive_poisson_exact_quadratic():
 def test_p_adaptive_poisson_vs_reference():
     """−Δu = f with manufactured u = sin(πx)sin(πy): the mixed-order
     solution error must land between the uniform-2 and uniform-4 errors."""
-    from cardiac_ablation_ecm2_tpu.models import poisson
+    from cardiac_ablation_ecm2.models import poisson
 
     def u_ex(x):
         x = np.asarray(x)
@@ -113,14 +113,14 @@ def test_p_adaptive_poisson_vs_reference():
         # nodal-interpolation RHS via own-order group quadrature
         b = jnp.zeros(sp.ndof)
         import jax.numpy as jnp2
-        from cardiac_ablation_ecm2_tpu.fem.basis import make_dof_to_quad
-        from cardiac_ablation_ecm2_tpu.fem.quadinterp import (
+        from cardiac_ablation_ecm2.fem.basis import make_dof_to_quad
+        from cardiac_ablation_ecm2.fem.quadinterp import (
             device_basis, eval_values_t)
-        from cardiac_ablation_ecm2_tpu.fem.geom_factors import (
+        from cardiac_ablation_ecm2.fem.geom_factors import (
             compute_geometric_factors)
-        from cardiac_ablation_ecm2_tpu.fem.basis import (
+        from cardiac_ablation_ecm2.fem.basis import (
             h1_nodes_1d, lattice_multi_index)
-        from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
+        from cardiac_ablation_ecm2.fem.geometry import Geometry
 
         bfull = jnp.zeros(sp.ndof + 1)
         for p, g in sp.groups.items():
@@ -150,7 +150,7 @@ def test_p_adaptive_poisson_vs_reference():
         u, info = cg(A, b, M=lambda r: r / d, rel_tol=1e-12, max_iter=5000)
         assert bool(info.converged)
         # quadrature L2 error via the group machinery
-        from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
+        from cardiac_ablation_ecm2.fem.quadinterp import eval_values
         err2 = 0.0
         up = jnp.concatenate([u, jnp.zeros(1)])
         for p, g in sp.groups.items():
@@ -180,7 +180,7 @@ def test_p_adaptive_poisson_vs_reference():
 
 
 def _mixed_space_3d(nx=3, ny=2, nz=2, seed=0):
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
 
     mesh = make_cartesian_3d(nx, ny, nz)
     rng = np.random.default_rng(seed)

@@ -6,11 +6,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace, RTSpace
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector import NDSpace, RTSpace
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     discrete_gradient,
@@ -124,7 +124,7 @@ def test_pa_matches_assembled_vecfe():
 def test_de_rham_div_curl_zero():
     """div(curl E) = 0: the RT0 incidence divergence annihilates discrete
     curls of arbitrary ND0 fields (full de Rham chain with grad)."""
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import discrete_curl
+    from cardiac_ablation_ecm2.ops.vecfe import discrete_curl
 
     mesh = pmesh3()
     nd = NDSpace(mesh)
@@ -140,7 +140,7 @@ def test_de_rham_div_curl_zero():
     assert np.abs(div).max() < 1e-11, np.abs(div).max()
     # and the chain: curl(grad φ) = 0 ⇒ C(G φ) = 0
     h1 = FESpace(mesh, 1)
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import discrete_gradient
+    from cardiac_ablation_ecm2.ops.vecfe import discrete_gradient
 
     G = discrete_gradient(h1, nd)
     phi = jnp.asarray(rng.random(h1.ndof_scalar))
@@ -156,10 +156,10 @@ def test_matrix_coefficient_curlcurl():
     error drops under refinement; scalar path recovered when M = c I."""
     import jax.numpy as jnp
 
-    from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+    from cardiac_ablation_ecm2.fem.fe_vector import NDSpace
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.ops.vecfe import (
         build_nd_operator,
         vecfe_linear_form,
     )

@@ -5,17 +5,17 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.basis import h1_nodes_1d
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_ho import (
+from cardiac_ablation_ecm2.fem.basis import h1_nodes_1d
+from cardiac_ablation_ecm2.fem.fe_vector_ho import (
     NDSpaceHO,
     RTSpaceHO,
     _nd_local_dofs,
     _open_nodes,
     _rt_local_dofs,
 )
-from cardiac_ablation_ecm2_tpu.fem.geometry import REF_VERTS, Geometry
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.fem.geometry import REF_VERTS, Geometry
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,
@@ -139,7 +139,7 @@ def test_constant_field_reproduction(kind, order):
     """Mass-project a constant vector field on a rotated-connectivity mesh:
     the projection must reproduce it exactly at all quadrature points —
     fails if any sign/permutation in the continuity wiring is wrong."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     mesh = _rotate_mesh(make_cartesian_3d(2, 2, 2), seed=7)
     c = np.array([0.3, -1.1, 0.7])
@@ -161,7 +161,7 @@ def test_constant_field_reproduction(kind, order):
 
 def test_nd_gradient_has_zero_curl():
     """∇H1 ⊂ ND: project ∇(xyz-ish polynomial); curl-curl energy ≈ 0."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     mesh = _rotate_mesh(make_cartesian_3d(2, 2, 2), seed=1)
     order = 2
@@ -189,7 +189,7 @@ def test_nd_gradient_has_zero_curl():
 
 
 def test_rt_2d_constant():
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     mesh = make_cartesian_2d(3, 3)
     space = RTSpaceHO(mesh, 2)
@@ -205,7 +205,7 @@ def test_rt_2d_constant():
 
 
 def test_nd_2d_constant():
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
+    from cardiac_ablation_ecm2.linalg.solvers import cg
 
     mesh = make_cartesian_2d(3, 3)
     space = NDSpaceHO(mesh, 2)
@@ -224,8 +224,8 @@ def test_matrix_coefficient_mass():
     """ex31-class anisotropic (σE, F): constant-field energy = cᵀσc·vol and
     FULL-assembly cross-check (VectorFEMassIntegrator w/ MatrixCoefficient,
     fem/bilininteg.hpp:2704)."""
-    from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import vecfe_linear_form
+    from cardiac_ablation_ecm2.linalg.solvers import cg
+    from cardiac_ablation_ecm2.ops.vecfe import vecfe_linear_form
 
     sig = np.array([[2.0, 0.3, 0.0], [0.3, 1.0, 0.1], [0.0, 0.1, 3.0]])
     mesh = make_cartesian_3d(2, 2, 2)

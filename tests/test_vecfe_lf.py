@@ -10,10 +10,10 @@ closed form.
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace, RTSpace
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.fem.fe_vector import NDSpace, RTSpace
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,
@@ -83,8 +83,8 @@ def test_nd_boundary_tangent_constant_duality():
     """∮ (n×c)·v dS = −∫ c·(∇×v) dV for constant c (Stokes):
     b == −vecfe_linear_form_curl(op, c) exactly, on hexes AND tets —
     validates chart rotation, outward signs, and edge orientation signs."""
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_tet
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import nd_boundary_tangent_lf
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2.ops.vecfe import nd_boundary_tangent_lf
 
     c = np.array([0.3, -1.1, 0.7])
     for mesh in [make_cartesian_3d(3, 3, 3), make_cartesian_3d_tet(2, 2, 2)]:
@@ -98,8 +98,8 @@ def test_nd_boundary_tangent_constant_duality():
 def test_nd_boundary_tangent_smooth_field_identity():
     """∇·(f×v) identity: ∮ (n×f)·v dS = (∇×f, v) − (f, ∇×v) for
     polynomial f (exact quadrature).  f = (y², 0, 0), ∇×f = (0, 0, −2y)."""
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_tet
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import nd_boundary_tangent_lf
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d_tet
+    from cardiac_ablation_ecm2.ops.vecfe import nd_boundary_tangent_lf
 
     def f(x):
         return np.stack([x[..., 1] ** 2, 0 * x[..., 0], 0 * x[..., 0]],
@@ -121,7 +121,7 @@ def test_nd_boundary_tangent_smooth_field_identity():
 def test_nd_boundary_tangent_marker_subset():
     """Marked-attribute assembly touches only dofs of the marked faces and
     the all-markers sum equals the unmarked call."""
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import nd_boundary_tangent_lf
+    from cardiac_ablation_ecm2.ops.vecfe import nd_boundary_tangent_lf
 
     mesh = make_cartesian_3d(2, 2, 2)
     sp = NDSpace(mesh)

@@ -11,24 +11,24 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import fe_vector_simplex as fvs
-from cardiac_ablation_ecm2_tpu.fem.fe_vector_simplex import (
+from cardiac_ablation_ecm2.fem import fe_vector_simplex as fvs
+from cardiac_ablation_ecm2.fem.fe_vector_simplex import (
     NDSimplexSpace,
     RTSimplexSpace,
     project_vec_simplex,
 )
-from cardiac_ablation_ecm2_tpu.fem.geometry import (
+from cardiac_ablation_ecm2.fem.geometry import (
     EDGES,
     FACES,
     Geometry,
     REF_VERTS,
 )
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d_tri,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     vecfe_linear_form,

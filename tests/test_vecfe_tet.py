@@ -8,15 +8,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.fe_vector import NDSpace, RTSpace
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.fe_vector import NDSpace, RTSpace
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import (
     make_cartesian_2d_tri,
     make_cartesian_3d_tet,
 )
-from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+from cardiac_ablation_ecm2.ops.vecfe import (
     build_nd_operator,
     build_rt_operator,
     discrete_gradient,
@@ -119,7 +119,7 @@ def test_nd_maxwell_solve_tet():
 def test_de_rham_complex_tet():
     """Full de Rham chain on tets: curl(grad)=0, div(curl)=0, and the
     divergence of an RT0 interpolant of a linear field is exact."""
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import (
+    from cardiac_ablation_ecm2.ops.vecfe import (
         discrete_curl,
         discrete_divergence,
     )
@@ -142,8 +142,8 @@ def test_de_rham_complex_tet():
 def test_discrete_div_exact_linear_field():
     """u = (x, 2y, 3z) has div = 6 exactly; interpolate into RT0 via face
     fluxes and check D u = 6 on every element."""
-    from cardiac_ablation_ecm2_tpu.mesh.mesh import unique_faces
-    from cardiac_ablation_ecm2_tpu.ops.vecfe import discrete_divergence
+    from cardiac_ablation_ecm2.mesh.mesh import unique_faces
+    from cardiac_ablation_ecm2.ops.vecfe import discrete_divergence
 
     mesh = tet_mesh()
     rt = RTSpace(mesh)

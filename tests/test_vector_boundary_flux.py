@@ -9,9 +9,9 @@ machine precision (reference fem/lininteg.hpp:443).
 import numpy as np
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d, make_cartesian_3d
-from cardiac_ablation_ecm2_tpu.ops.linearform import vector_boundary_flux_lf
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d, make_cartesian_3d
+from cardiac_ablation_ecm2.ops.linearform import vector_boundary_flux_lf
 
 
 def identity_coefs(fes):

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import geom_factors_for
-from cardiac_ablation_ecm2_tpu.io.mesh_io import read_mfem_mesh
-from cardiac_ablation_ecm2_tpu.io.vtk_reader import read_vtk_mesh
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import geom_factors_for
+from cardiac_ablation_ecm2.io.mesh_io import read_mfem_mesh
+from cardiac_ablation_ecm2.io.vtk_reader import read_vtk_mesh
 
 DATA = "/root/reference/data"
 
@@ -48,7 +48,7 @@ def test_vtk_boundary_generation():
 
 def test_vtk_curved_solve():
     """A Poisson solve runs end-to-end on a quadratic VTK mesh."""
-    from cardiac_ablation_ecm2_tpu.models import poisson
+    from cardiac_ablation_ecm2.models import poisson
 
     mesh = read_vtk_mesh(f"{DATA}/fichera-q2.vtk")
     res = poisson.solve(mesh, order=2, rel_tol=1e-10)
@@ -71,7 +71,7 @@ def test_order3_curved_mfem_meshes():
 
 def test_order3_nodes_conforming():
     """Shared-entity node coords agree across elements (decode consistency)."""
-    from cardiac_ablation_ecm2_tpu.fem.restriction import ElementRestriction
+    from cardiac_ablation_ecm2.fem.restriction import ElementRestriction
 
     for name in ("escher-p3", "fichera-q3"):
         m = read_mfem_mesh(f"{DATA}/{name}.mesh")

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import l2_error, project
-from cardiac_ablation_ecm2_tpu.linalg.ode2 import select2
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_2d
-from cardiac_ablation_ecm2_tpu.models import wave
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.gridfunction import l2_error, project
+from cardiac_ablation_ecm2.linalg.ode2 import select2
+from cardiac_ablation_ecm2.mesh import make_cartesian_2d
+from cardiac_ablation_ecm2.models import wave
 
 
 def test_standing_wave_period():

@@ -5,18 +5,18 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cardiac_ablation_ecm2_tpu.fem import FESpace
-from cardiac_ablation_ecm2_tpu.fem.build import (
+from cardiac_ablation_ecm2.fem import FESpace
+from cardiac_ablation_ecm2.fem.build import (
     basis_for,
     geom_factors_for,
     restriction_for,
 )
-from cardiac_ablation_ecm2_tpu.fem.gridfunction import project
-from cardiac_ablation_ecm2_tpu.fem.quadinterp import eval_values
-from cardiac_ablation_ecm2_tpu.linalg.solvers import cg
-from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d_prism
-from cardiac_ablation_ecm2_tpu.ops import BilinearForm
-from cardiac_ablation_ecm2_tpu.ops.linearform import domain_lf
+from cardiac_ablation_ecm2.fem.gridfunction import project
+from cardiac_ablation_ecm2.fem.quadinterp import eval_values
+from cardiac_ablation_ecm2.linalg.solvers import cg
+from cardiac_ablation_ecm2.mesh import make_cartesian_3d_prism
+from cardiac_ablation_ecm2.ops import BilinearForm
+from cardiac_ablation_ecm2.ops.linearform import domain_lf
 
 
 @pytest.mark.parametrize("p", [1, 2, 3])

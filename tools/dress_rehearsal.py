@@ -47,43 +47,23 @@ def main():
     jax.config.update("jax_enable_x64", True)
 
     # persistent executable cache: repeat rehearsals of the unchanged step
-    # skip the multi-minute compile (CAX_COMPILE_CACHE=0 for cold timings)
-    if os.environ.get("CAX_COMPILE_CACHE", "") != "0":
-        from cardiac_ablation_ecm2_tpu.utils.config import \
-            enable_compilation_cache
+    # skip the multi-minute compile
+    from cardiac_ablation_ecm2.utils.config import enable_compilation_cache
 
-        enable_compilation_cache()
+    enable_compilation_cache()
 
     import jax.numpy as jnp
     import numpy as np
 
-    from cardiac_ablation_ecm2_tpu.mesh import make_cartesian_3d
+    from cardiac_ablation_ecm2.mesh import make_cartesian_3d
 
     n = args.n
     L = 0.04
     if args.cardiac_tet:
-        # deterministic (seed=0) — cache like bench.py to skip the
-        # multi-minute Delaunay rebuild between rehearsals
-        from cardiac_ablation_ecm2_tpu.fem.geometry import Geometry
-        from cardiac_ablation_ecm2_tpu.mesh.mesh import Mesh
+        from cardiac_ablation_ecm2.mesh.cardiac import make_cardiac_tet_mesh
 
-        path = f"/tmp/bench_mesh_cardiac-tet_{n}.npz"
-        if os.path.exists(path):
-            z = np.load(path)
-            mesh = Mesh(geom=Geometry(int(z["geom"])),
-                        vertices=z["vertices"], elements=z["elements"],
-                        attributes=z["attributes"], boundary=z["boundary"],
-                        bdr_attributes=z["bdr_attributes"])
-        else:
-            from cardiac_ablation_ecm2_tpu.mesh.cardiac import (
-                make_cardiac_tet_mesh)
-
-            mesh = make_cardiac_tet_mesh(n, lengths=(L, L, L / 2),
-                                         electrode_radius=0.004)
-            np.savez(path, geom=int(mesh.geom), vertices=mesh.vertices,
-                     elements=mesh.elements, attributes=mesh.attributes,
-                     boundary=mesh.boundary,
-                     bdr_attributes=mesh.bdr_attributes)
+        mesh = make_cardiac_tet_mesh(n, lengths=(L, L, L / 2),
+                                     electrode_radius=0.004)
     else:
         mesh = make_cartesian_3d(n, n, n, L, L, L)
 
@@ -94,7 +74,7 @@ def main():
     devices = jax.devices("cpu")[: args.ndev]
     t0 = time.time()
     if args.structured:
-        from cardiac_ablation_ecm2_tpu.parallel import cartesian_bioheat as pb
+        from cardiac_ablation_ecm2.parallel import cartesian_bioheat as pb
 
         sim = pb.setup(
             n, n, n, order=args.order, ndev=args.ndev, lengths=(L, L, L),
@@ -102,7 +82,7 @@ def main():
             rel_tol=1e-6, max_iter=50, devices=devices,
         )
     else:
-        from cardiac_ablation_ecm2_tpu.parallel import bioheat as pb
+        from cardiac_ablation_ecm2.parallel import bioheat as pb
 
         sim = pb.setup(
             mesh, order=args.order, ndev=args.ndev, q_src=src,

@@ -1,5 +1,5 @@
 // MFEM CPU reference driver for the bioheat implicit-timestep benchmark —
-// the exact configuration bench.py runs on TPU (linear Pennes, theta form,
+// the exact configuration bench.py runs on the GPU (linear Pennes, theta form,
 // H1 order 2, SDIRK33, CG+Jacobi rel_tol 1e-5 max_iter 300), on an
 // arbitrary mesh file so the unstructured cardiac tet/hex meshes can be fed
 // bit-identically to both sides.
